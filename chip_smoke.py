@@ -12,21 +12,26 @@ non-zero exit):
      native parse core from the checkout's sources; print nvcc's
      register / shared-memory report for each kernel;
   2. print the card's name and power limit;
-  3. parse frame 0 of each stream and hold each kernel against its plain
-     PyTorch version on the card on the same inputs, requiring identical
-     planes: the whole-frame kernel on i_main frame 0; the banded kernel
-     on bands 0-1 of 4K frame 0 (the plain version takes ~0.5 ms a job),
-     and against the whole-frame kernel on all of 4K frame 0 (same
-     band-sorted meta and band-layout planes); time the kernels;
+  3. parse frame 0 of each stream and hold each level-parallel kernel
+     against its plain PyTorch version on the card on the same inputs,
+     requiring identical planes: the whole-frame kernel on i_main frame
+     0; the banded kernel on bands 0-1 of 4K frame 0 (the plain version
+     takes ~0.5 ms a job), and against the whole-frame kernel on all of
+     4K frame 0 (same band-sorted meta and band-layout planes). Then, on
+     the whole of both frames: level-parallel kernel == the serial-order
+     entry (one warp, jobs in meta order), and REPEATS launches in a row
+     give identical planes (a hand-over that is almost right fails here).
+     Print each frame's level-width histogram; time the kernels;
   4. decode every frame of each stream through `Decoder(device="cuda")`
      with every launch counter set to 0 just before, require each
-     stream's kernel to have launched once per frame and the other not
-     at all, and require the per-frame md5 (cropped Y, U, V as uint8, or
-     uint16 above 8 bits, as bench.py hashes) to equal the reference
-     decoder's sidecar for every frame;
-  5. print decode rates, stage breakdowns, kernel times, launch counts,
-     and one JSON line with every kernel's record; the last line is the
-     device summary.
+     stream's kernel to have launched once per frame and the other
+     kernel and the serial-order entry not at all, and require the
+     per-frame md5 (cropped Y, U, V as uint8, or uint16 above 8 bits, as
+     bench.py hashes) to equal the reference decoder's sidecar for every
+     frame;
+  5. print decode rates (every timed pass is md5-checked too), stage
+     breakdowns, kernel times, launch counts, and one JSON line with
+     every kernel's record; the last line is the device summary.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -46,6 +51,7 @@ STREAMS = {"i_main": "r4a_i_main_832x480.265",
 KERNEL_OF = {"i_main": "intra_fused", "main10_4k": "intra_fused_banded"}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 REPS = 5
+REPEATS = 20        # launches in a row that must give identical planes
 PLAIN_BANDS = 2     # bands of 4K frame 0 held to the plain version
 
 
@@ -130,21 +136,45 @@ def _max_err(xs, ys):
     return max(int((a - b).abs().max()) for a, b in zip(xs, ys))
 
 
-def _run_kernel(k, banded, n=None, bounds=None, planes=None):
-    """One launch of the whole-frame or the banded kernel on prepare()'s
-    inputs k: the first n jobs (all by default), band bounds `bounds`
-    (k's by default), on `planes` or on fresh clones of the starting
-    planes; returns [luma, chroma]."""
+def _run_kernel(k, banded, head=None, planes=None):
+    """One launch of the whole-frame or the banded level-parallel kernel
+    on prepare()'s inputs k: all jobs with k's schedule, or the jobs and
+    schedule of `head` (_head), on `planes` or on fresh clones of the
+    starting planes; returns [luma, chroma]."""
     from openhevc_tpu_torch.ops.intra_fused import (intra_fused,
                                                     intra_fused_banded)
     out = planes or [k["luma"].clone(), k["chroma"].clone()]
-    n = k["n"] if n is None else n
-    tail = (k["res_l"], k["res_c"], k["bd"])
+    n, bounds, order, level_bounds = head or (
+        k["n"], k["bounds"], k["order"], k["level_bounds"])
+    tail = (*out, k["res_l"], k["res_c"], k["bd"], order, level_bounds)
     if banded:
-        intra_fused_banded(k["meta"], k["bounds"] if bounds is None
-                           else bounds, n, *out, *tail)
+        intra_fused_banded(k["meta"], bounds, n, *tail)
     else:
-        intra_fused(k["meta"], n, *out, *tail)
+        intra_fused(k["meta"], n, *tail)
+    return out
+
+
+def _head(k, nbands):
+    """(n, bounds, order, level_bounds) of the first nbands bands of a
+    banded plan k: the jobs below bounds[nbands], in k's level order.
+    Valid on its own: a job depends only on jobs of its own and earlier
+    bands."""
+    import torch
+    bounds = k["bounds"][:nbands + 1]
+    n = int(bounds[-1])
+    keep = k["order"] < n
+    seen = torch.cat([keep.new_zeros(1, dtype=torch.int32),
+                      keep.cumsum(0, dtype=torch.int32)])
+    return (n, bounds, k["order"][keep].contiguous(),
+            seen[k["level_bounds"].long()].contiguous())
+
+
+def _run_serial(k):
+    """The serial-order entry on fresh clones of k's starting planes."""
+    from openhevc_tpu_torch.ops.intra_fused import intra_fused_serial
+    out = [k["luma"].clone(), k["chroma"].clone()]
+    intra_fused_serial(k["meta"], k["n"], *out, k["res_l"], k["res_c"],
+                       k["bd"])
     return out
 
 
@@ -162,33 +192,80 @@ def _kernel_ms(k, banded, reps):
 
 def _bound_ms(fs, k):
     """Least time for the work on this card, from bytes: the jobs' meta
-    (64 B a job) and the frame's residual read once, the reconstruction
-    written once (8 B a sample), and the PCM samples prefilled into the
-    starting planes (the kernel reads no other sample of those planes
-    that it has not written itself)."""
+    and order (64 + 4 B a job), the level bounds, the frame's residual
+    read once, the reconstruction written once (8 B a sample), and the
+    PCM samples prefilled into the starting planes (the kernel reads no
+    other sample of those planes that it has not written itself)."""
     H, W, Hc, Wc = k["dims"]
     pcm = sum(p.size * p.size + 2 * (p.size >> fs.sps.vshift1)
               * (p.size >> fs.sps.hshift1) for p in fs.pcm_blocks)
-    nbytes = 16 * 4 * k["n"] + 2 * 4 * (H * W + 2 * Hc * Wc) + 4 * pcm
+    nbytes = (16 + 1) * 4 * k["n"] + 4 * k["level_bounds"].numel() + \
+        2 * 4 * (H * W + 2 * Hc * Wc) + 4 * pcm
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def _record(name, source, replaces, fs, k, err, ms, plain_ms):
+def level_widths(fs, grid):
+    """Histogram of the jobs per wavefront level of one parsed picture,
+    beside the kernel's grid (blocks) and its teams of warps (a team
+    runs one job at a time)."""
+    import numpy as np
+    from openhevc_tpu_torch.ops.intra_fused import TEAMS_PER_BLOCK
+    w = np.bincount(fs.native_raw["ij_meta"][:, 6])[1:]
+    return {"levels": int(len(w)), "min": int(w.min()),
+            "median": float(np.median(w)), "mean": float(w.mean()),
+            "p90": float(np.percentile(w, 90)), "max": int(w.max()),
+            "share_no_wider_than_blocks": float((w <= grid).mean()),
+            "share_no_wider_than_teams":
+                float((w <= TEAMS_PER_BLOCK * grid).mean())}
+
+
+def check_whole_frame(name, fs, k, banded):
+    """Phase 3 on the whole of one frame: level-parallel kernel == the
+    serial-order entry, and REPEATS launches give identical planes.
+    Returns (serial ms, the kernel's grid)."""
+    import torch
+    from openhevc_tpu_torch.ops.intra_fused import (intra_fused,
+                                                    intra_fused_banded)
+    want = _run_serial(k)
+    serial_ms = _elapsed_ms(lambda: _run_serial(k))
+    for i in range(REPEATS):
+        got = _run_kernel(k, banded)
+        _sync()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(
+                f"{name}: launch {i} of the level-parallel kernel differs "
+                f"from the serial-order entry by up to "
+                f"{_max_err(got, want)}")
+    grid = (intra_fused_banded if banded else intra_fused).last_grid
+    hist = level_widths(fs, grid)
+    print(f"phase3 {name} frame 0: level-parallel == serial-order entry on "
+          f"{k['n']} jobs, {REPEATS} launches identical (grid {grid} "
+          f"blocks); level widths {json.dumps(hist)}", flush=True)
+    return serial_ms, grid
+
+
+def _record(name, source, replaces, fs, k, err, ms, plain_ms, serial_ms,
+            grid):
+    n_levels = fs.native_raw["n_levels"]
     return {
         "name": name, "route": "cuda",
         "source": f"openhevc_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": 0, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": _bound_ms(fs, k),
         "bound_by": "bytes", "library_ms": None,
-        # not contract keys: the serial chain that bounds it in practice
-        "jobs": k["n"], "n_levels": fs.native_raw["n_levels"],
+        # not contract keys: the wavefront chain that bounds it in
+        # practice, and the serial-order entry's time on the same frame
+        "jobs": k["n"], "n_levels": n_levels, "serial_ms": serial_ms,
+        "us_per_level": ms * 1e3 / n_levels, "us_per_job": ms * 1e3 / k["n"],
+        "grid": grid,
     }
 
 
 def check_intra_fused(fs, reps=REPS):
     """Phase 3 for the whole-frame kernel on one parsed picture: kernel
-    and plain version on the same inputs must agree exactly. Returns the
-    kernel's JSON record (launches filled in later)."""
+    and plain version on the same inputs must agree exactly, and so must
+    kernel and serial-order entry, over and over. Returns the kernel's
+    JSON record (launches filled in later)."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops.intra_fused import intra_fused_ref
     k = TorchEngine("cuda").prepare(fs)
@@ -202,28 +279,29 @@ def check_intra_fused(fs, reps=REPS):
     if err != 0:
         raise AssertionError(f"intra_fused differs from its plain version "
                              f"by up to {err}")
+    serial_ms, grid = check_whole_frame("i_main", fs, k, False)
     return _record("intra_fused", "intra_fused.cu",
                    "openhevc_tpu/ops/intra_fused.py:490", fs, k, err,
-                   _kernel_ms(k, False, reps), plain_ms)
+                   _kernel_ms(k, False, reps), plain_ms, serial_ms, grid)
 
 
-def check_intra_fused_banded(fs, reps=3):
+def check_intra_fused_banded(fs, reps=REPS):
     """Phase 3 for the banded kernel on one parsed 4K picture: kernel ==
-    plain version on the first PLAIN_BANDS bands, and kernel == the
-    whole-frame kernel on the whole frame (same band-sorted meta, same
-    band-layout planes). Returns (record, whole-frame kernel ms on this
-    frame)."""
+    plain version on the first PLAIN_BANDS bands; kernel == the
+    whole-frame kernel and == the serial-order entry on the whole frame
+    (same band-sorted meta, same band-layout planes), over and over.
+    Returns (record, whole-frame kernel ms on this frame)."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops.intra_fused import intra_fused_banded_ref
     k = TorchEngine("cuda").prepare(fs)
     if k["bounds"] is None:
         raise AssertionError("4K frame 0 planned whole-frame")
-    head = k["bounds"][:PLAIN_BANDS + 1]
-    n_head = int(head[-1])
-    out_k = _run_kernel(k, True, n=n_head, bounds=head)
+    head = _head(k, PLAIN_BANDS)
+    out_k = _run_kernel(k, True, head=head)
     out_p = [k["luma"].clone(), k["chroma"].clone()]
     plain_ms = _elapsed_ms(lambda: intra_fused_banded_ref(
-        k["meta"], head, n_head, *out_p, k["res_l"], k["res_c"], k["bd"]))
+        k["meta"], head[1], head[0], *out_p, k["res_l"], k["res_c"],
+        k["bd"]))
     err = _max_err(out_k, out_p)
     if err != 0:
         raise AssertionError(f"intra_fused_banded differs from its plain "
@@ -235,14 +313,15 @@ def check_intra_fused_banded(fs, reps=3):
     if werr != 0:
         raise AssertionError(f"intra_fused_banded differs from intra_fused "
                              f"on the whole frame by up to {werr}")
+    serial_ms, grid = check_whole_frame("main10_4k", fs, k, True)
     ms_b, ms_w = [], []
     for _ in range(reps):          # alternate the two kernels
         ms_b.append(_kernel_ms(k, True, 1))
         ms_w.append(_kernel_ms(k, False, 1))
     rec = _record("intra_fused_banded", "intra_fused_banded.cu",
                   "openhevc_tpu/ops/intra_fused.py:627", fs, k, err,
-                  sum(ms_b) / reps, plain_ms)
-    rec.update(plain_jobs=n_head, bands=len(k["bounds"]) - 1,
+                  sum(ms_b) / reps, plain_ms, serial_ms, grid)
+    rec.update(plain_jobs=head[0], bands=len(k["bounds"]) - 1,
                whole_frame_max_abs_err=werr)
     return rec, sum(ms_w) / reps
 
@@ -265,9 +344,9 @@ def decode_all(data, fetch):
 def breakdown(data):
     """Mean ms per frame of each stage run alone and synchronised: host
     parse (native core, parse-ahead threads), prep (one H2D copy,
-    residual, PCM prefill, meta, band sort), the intra kernel of the
-    frame's plan, crop + pack, and the device-to-host fetch of the
-    output."""
+    residual, PCM prefill, meta, band sort, level schedule), the intra
+    kernel of the frame's plan, crop + pack, and the device-to-host
+    fetch of the output."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine, crop_pack
     t0 = time.perf_counter()
     fss = parse_only(data)
@@ -275,12 +354,15 @@ def breakdown(data):
     eng = TorchEngine("cuda")
     for key in ("prep", "kernel", "crop_pack", "fetch"):
         out[key] = 0.0
+    slowest_prep = 0.0
     for fs in fss:
         _sync()
         t0 = time.perf_counter()
         k = eng.prepare(fs)
         _sync()
-        out["prep"] += (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        out["prep"] += ms
+        slowest_prep = max(slowest_prep, ms)
         out["kernel"] += _elapsed_ms(lambda: _run_kernel(
             k, k["bounds"] is not None, planes=[k["luma"], k["chroma"]]))
         t0 = time.perf_counter()
@@ -290,14 +372,16 @@ def breakdown(data):
         t0 = time.perf_counter()
         flat.cpu()
         out["fetch"] += (time.perf_counter() - t0) * 1e3
-    return {k: v / len(fss) for k, v in out.items()}
+    out = {k: v / len(fss) for k, v in out.items()}
+    out["prep (slowest frame)"] = slowest_prep
+    return out
 
 
 def main_path(name, counters):
     """Phase 4 on one stream: decode it with every launch counter set to
-    0 just before; require its kernel once per frame, the other kernel
-    never, and every frame's md5 equal to the sidecar. Returns (number
-    of frames, launch counts, decoder)."""
+    0 just before; require its kernel exactly once per frame, the other
+    kernel and the serial-order entry never, and every frame's md5 equal
+    to the sidecar. Returns (number of frames, launch counts, decoder)."""
     data, want = load_stream(name)
     decode_all(first_frames(data, 2), fetch=True)         # warm-up
     for f in counters.values():
@@ -312,25 +396,29 @@ def main_path(name, counters):
         raise AssertionError(f"{name}: decoded frames differ from the "
                              f"reference md5 sidecar")
     for n, c in launches.items():
-        if n == KERNEL_OF[name] and c < len(pics):
+        if n == KERNEL_OF[name] and c != len(pics):
             raise AssertionError(f"{name}: kernel {n} launched {c} times "
                                  f"for {len(pics)} frames")
         if n != KERNEL_OF[name] and c != 0:
-            raise AssertionError(f"{name}: kernel {n} launched {c} times; "
-                                 f"this stream's frames are "
-                                 f"{KERNEL_OF[name]}'s")
+            raise AssertionError(f"{name}: {n} launched {c} times; this "
+                                 f"stream's frames are {KERNEL_OF[name]}'s")
     return len(pics), launches, dec
 
 
 def report(name, nf, dec):
     """Phase 5 on one stream: decode rates (outputs on the device and
-    fetched to the host, alternating) and the stage breakdown."""
-    data, _ = load_stream(name)
+    fetched to the host, alternating; every pass's frames are hashed
+    after its clock stops and must equal the sidecar) and the stage
+    breakdown."""
+    data, want = load_stream(name)
     for i in range(2):
-        _, dt_dev, _ = decode_all(data, fetch=False)
-        _, dt_host, _ = decode_all(data, fetch=True)
-        print(f"{name} decode_fps_device_resident[{i}] {nf / dt_dev}")
-        print(f"{name} decode_fps_fetched_to_host[{i}] {nf / dt_host}")
+        for label, fetch in (("device_resident", False),
+                             ("fetched_to_host", True)):
+            pics, dt, _ = decode_all(data, fetch=fetch)
+            if hash_pics(pics) != want:
+                raise AssertionError(f"{name}: timed pass {label}[{i}] "
+                                     f"differs from the md5 sidecar")
+            print(f"{name} decode_fps_{label}[{i}] {nf / dt}")
     for k, v in breakdown(data).items():
         print(f"{name} stage_ms_per_frame {k} {v}")
     print(f"{name} native_slices {dec.stats['native_slices']}", flush=True)
@@ -340,7 +428,8 @@ def run():
     """Phases 3-5 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
     counters = {"intra_fused": ifm.intra_fused,
-                "intra_fused_banded": ifm.intra_fused_banded}
+                "intra_fused_banded": ifm.intra_fused_banded,
+                "intra_fused_serial": ifm.intra_fused_serial}
 
     # ---- phase 3: each kernel vs its plain version -----------------------
     fs = parse_only(first_frames(load_stream("i_main")[0], 1))[0]
@@ -368,7 +457,11 @@ def run():
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
     for name, r in recs.items():
-        print(f"{r['name']}_kernel_ms_per_frame {r['ms']} ({name} frame 0)")
+        print(f"{r['name']}_kernel_ms_per_frame {r['ms']} ({name} frame 0; "
+              f"{r['us_per_level']} us a level, {r['us_per_job']} us a job, "
+              f"grid {r['grid']})")
+        print(f"{r['name']}_serial_order_entry_ms {r['serial_ms']} "
+              f"({name} frame 0)")
         print(f"{r['name']}_plain_ms {r['plain_ms']} "
               f"({r.get('plain_jobs', r['jobs'])} jobs)")
         print(f"{r['name']}_launches {r['launches']} ({name})")

@@ -144,14 +144,16 @@ def _ptr(arr):
 def _pack_native(lib, o, cb_meta, cb_levels, ij_meta, ij_avail, sps):
     """Call hevc_pack_frame: per-size residual payload arena (v2
     scan-prefix nibble/byte format, 4-int16-per-block sideband) +
-    [8, npad] intra meta in the exact _frame_fused upload layout (no
-    scaling lists)."""
+    [5, npad] intra meta in the JAX package's _frame_fused upload layout
+    (no scaling lists). The port adds each job's wavefront level
+    (ij_meta column 6) as a sixth row of the same buffer: `meta` is the
+    first five rows, `meta6` all six."""
     # worst case payload: one byte per level cell (byte mode)
     a4 = np.empty(o.lvl_used + 64, np.uint8)
     a16 = np.empty(4 * (o.n_cb + o.n_cb // 2) + 4 * 4 * 528 + 16,
                    np.int16)
     npad = _bucket(int(o.n_ij))
-    meta = np.empty(5 * npad, np.int16)
+    meta = np.empty(6 * npad, np.int16)
     caps = np.zeros(16, np.int32)
     used = np.zeros(4, np.int32)
     esc_cap = 65536
@@ -162,7 +164,7 @@ def _pack_native(lib, o, cb_meta, cb_levels, ij_meta, ij_avail, sps):
             _ptr(ij_meta), _ptr(ij_avail), o.n_ij,
             1 if sps.strong_intra_smoothing else 0,
             _ptr(a4), a4.size, _ptr(a16), a16.size,
-            _ptr(esc), esc_cap, _ptr(meta), meta.size,
+            _ptr(esc), esc_cap, _ptr(meta), 5 * npad,
             _ptr(caps), _ptr(used))
         if rc == 0:
             break
@@ -173,14 +175,22 @@ def _pack_native(lib, o, cb_meta, cb_levels, ij_meta, ij_avail, sps):
     # _pack_arena (the arena LENGTH is part of the static jit layout)
     pay = np.zeros(_round_fine(max(int(used[0]), 1), 4096), np.uint8)
     pay[:used[0]] = a4[:used[0]]
+    n = int(o.n_ij)
+    meta6 = meta.reshape(6, npad)
+    level = ij_meta[6:n * 8:8]
+    if n and not 1 <= int(level.min()) <= int(level.max()) <= 32767:
+        raise ValueError("intra job levels outside 1..32767")
+    meta6[5, :n] = level
+    meta6[5, n:] = 0
     return dict(
         arena4=pay,
         arena16=a16[:used[1]] if used[1] else np.zeros(1, np.int16),
         esc=esc[:used[2]] if used[2] else np.zeros(2, np.int32),
         caps=tuple(tuple(int(v) for v in caps[i * 4:(i + 1) * 4])
                    for i in range(4)),
-        meta=meta.reshape(5, npad),
-        n=int(o.n_ij))
+        meta=meta6[:5],
+        meta6=meta6,
+        n=n)
 
 
 def parse_slice_native(rbsp: bytes, sps, pps, sh, nal_type: int, poc: int,

@@ -1,134 +1,78 @@
 // Banded fused intra reconstruction for Hopper (sm_90a): every intra TU
-// of a large frame, band by band, in ONE launch.
+// of a large frame in ONE launch, the jobs of each wavefront level side
+// by side.
 //
 // Replaces the TPU kernel openhevc_tpu/ops/intra_fused.py::_build_banded
 // (pallas_call at :627; per-TU body `_job` :230-445). Same inputs: the
 // job meta [16, npad] stably pre-sorted by CTB-row band
-// (ops/intra_fused.py::sort_meta_by_band), bounds [nbands + 1] (band k
-// runs jobs bounds[k]..bounds[k+1]), the planes at band_plan's dims.
-// Same output as _build_banded, which is the same as _build's.
+// (ops/intra_fused.py::sort_meta_by_band) and the planes at band_plan's
+// dims. Same output as _build_banded, which is the same as _build's.
 //
 // What carries over and what does not. On the TPU the planes sit in HBM
 // and each band (8-row halo + band + 64-row pad) is DMA'd through VMEM,
-// with the jobs' y rebased to the band and lane rolls picking a job's
-// meta column. Here a 4K band with halo and pad is (8+64+64)*4224*4 B =
-// 2.3 MB of luma recon alone, ten times the 228 KB of shared memory of
-// one SM: the planes stay in global memory (a band's working set, ~8 MB
-// with residual and chroma, fits the 50 MB L2), so there is no staging,
-// no rebase and no roll. What carries over is the meta DMA: the meta
-// arrives in [16, 128] int32 chunks (8 KB) through cp.async into shared
-// memory, double-buffered, so chunk c+1 lands while chunk c's jobs run
-// (the whole-frame kernel reads each job's 16 fields from 16 global rows
-// npad apart, on the serial chain). Chunks are 128-aligned in the sorted
-// meta; a band may start and end mid-chunk.
+// bands strictly in order. Here a 4K band with halo and pad is
+// (8+64+64)*4224*4 B = 2.3 MB of luma recon alone, ten times an SM's
+// shared memory, so the planes stay in global memory / the 50 MB L2 and
+// nothing is staged. And the bands must NOT be walked in order: a band's
+// own wavefront is over a thousand levels long at 4K, 34 bands of it
+// would multiply the chain, and the level of a job already encodes every
+// dependency, the above-right one across a CTB-row boundary included.
+// What carries over is the band as the tie-break of the level order
+// (key: level, then band, then decode order: a stable sort by level of
+// the band-sorted meta), which keeps a level's neighbouring jobs close
+// together in L2.
 //
-// What bounds it on this card. Bytes: 64 B of meta per job plus 8 B per
-// sample (residual read + recon write), ~108.9 MB for frame 0 of the 4K
-// Main10 bench stream, ~32.5 us at 3.35 TB/s. In practice the bound is
-// the serial chain: a TU reads its left and top neighbours'
-// reconstruction, so the ~150k jobs of a 4K frame form ~3,050 wavefront
-// levels that no bandwidth shortens.
+// What bounds it on this card: the frame-wide wavefront chain (~3,050
+// levels on a 4K frame), not the ~109 MB of meta, residual and
+// reconstruction (~33 us at 3.35 TB/s). The level-parallel scheduler of
+// csrc/intra_sched.cuh runs a level's jobs on as many teams of warps
+// across the SMs and hands over through one counter in global memory
+// (design and memory order: see there; per-TU body:
+// csrc/intra_job.cuh).
 //
-// Design for now: right and simple. One thread block walks bands 0..nb-1
-// in order, skips empty ones, and runs each band's jobs in their sorted
-// order with the per-TU body of csrc/intra_job.cuh, which ends with a
-// __syncthreads(). Making it fast (a level-parallel launch over the
-// wavefront chain, a cluster holding a band in distributed shared
-// memory, or a CTB-wide window in shared memory) is later work
-// (ROADMAP.md).
-//
-// The planes are updated in place; the kernel allocates nothing.
+// The planes are updated in place; the kernel allocates nothing (`done`
+// is the caller's zeroed counter).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "intra_job.cuh"
+#include "intra_sched.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;     // jobs per meta chunk
-constexpr int kRows = 16;       // meta rows
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group of this thread is in flight
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Start copying meta columns [c * kChunk, min((c + 1) * kChunk, n)) into
-// dst and commit them as one group.
-__device__ __forceinline__ void load_chunk(int32_t (*dst)[kChunk],
-                                           const int32_t* meta, int npad,
-                                           int n, int c) {
-    const int base = c * kChunk;
-    for (int e = threadIdx.x; e < kRows * kChunk; e += intra::kThreads) {
-        const int row = e / kChunk, col = e % kChunk;
-        if (base + col < n)
-            cp_async4(&dst[row][col], meta + (size_t)row * npad + base + col);
-    }
-    cp_async_commit();
-}
-
-__global__ void __launch_bounds__(intra::kThreads, 1)
-intra_fused_banded_kernel(const int32_t* __restrict__ meta, int npad, int n,
-                          const int32_t* __restrict__ bounds, int nb,
-                          intra::Planes pl, int bd) {
-    __shared__ intra::Scratch sc;
-    __shared__ int32_t smeta[2][kRows][kChunk];
-
-    // bounds rise from 0 to n (checked by the wrapper), so the band walk
-    // visits jobs 0..n-1 in order and enters chunks 0, 1, 2, ... in turn
-    load_chunk(smeta[0], meta, npad, n, 0);
-    int cur = -1;
-    for (int k = 0; k < nb; ++k) {
-        const int start = bounds[k], end = bounds[k + 1];
-        for (int j = start; j < end; ++j) {
-            const int c = j / kChunk;
-            if (c != cur) {
-                // chunk c+1 goes to chunk c-1's buffer: every job that
-                // read it ended in a __syncthreads()
-                if ((c + 1) * kChunk < n)
-                    load_chunk(smeta[(c + 1) & 1], meta, npad, n, c + 1);
-                else
-                    cp_async_commit();          // empty group
-                cp_async_wait_all_but_newest();  // chunk c has landed
-                __syncthreads();
-                cur = c;
-            }
-            intra::intra_job(&smeta[c & 1][0][j % kChunk], kChunk, pl, bd,
-                             sc);
-        }
-    }
-    cp_async_wait_all();
+__global__ void __launch_bounds__(intra::kThreads)
+intra_fused_banded_kernel(intra::Schedule sd, intra::Planes pl, int bd,
+                          unsigned* done) {
+    __shared__ intra::Scratch sc[intra::kWarpsPerBlock];
+    intra::run_levels<intra::kTeam>(sd, pl, bd,
+                                    sc[threadIdx.x / intra::kWarp],
+                                    intra::DoneCount{done});
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success).
+// Blocks that may be launched (all co-resident); returns the cudaError_t.
+extern "C" int intra_fused_banded_max_grid(int* blocks) {
+    return intra::max_coresident_blocks(intra_fused_banded_kernel, blocks);
+}
+
+// Cooperative launch on `grid` blocks; returns the cudaError_t (a grid
+// larger than what is co-resident is refused by the runtime).
 extern "C" int intra_fused_banded_launch(const void* meta, int npad, int n,
-                                         const void* bounds, int nb,
+                                         const void* order,
+                                         const void* level_bounds,
+                                         int n_levels, void* done, int grid,
                                          void* luma, int wl, void* chroma,
                                          int hc, int wc, const void* res_l,
                                          const void* res_c, int bd,
                                          void* stream) {
-    if (n <= 0) return 0;
-    const intra::Planes pl{(int32_t*)luma, wl, (int32_t*)chroma, hc, wc,
-                           (const int32_t*)res_l, (const int32_t*)res_c};
-    intra_fused_banded_kernel<<<1, intra::kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const int32_t*)meta, npad, n, (const int32_t*)bounds, nb, pl, bd);
-    return (int)cudaGetLastError();
+    intra::Schedule sd{(const int32_t*)meta, npad, n, (const int32_t*)order,
+                       (const int32_t*)level_bounds, n_levels};
+    intra::Planes pl{(int32_t*)luma, wl, (int32_t*)chroma, hc, wc,
+                     (const int32_t*)res_l, (const int32_t*)res_c};
+    unsigned* d = (unsigned*)done;
+    void* args[] = {&sd, &pl, &bd, &d};
+    return (int)cudaLaunchCooperativeKernel(
+        (const void*)intra_fused_banded_kernel, dim3(grid),
+        dim3(intra::kThreads), args, 0, (cudaStream_t)stream);
 }

@@ -15,13 +15,13 @@ from .buildutil import BUILD_DIR, PKG_DIR, build_once
 
 SOURCES = {"intra_fused": "intra_fused.cu",
            "intra_fused_banded": "intra_fused_banded.cu"}
-HEADERS = ["intra_job.cuh"]        # included by every source above
+HEADERS = ["intra_job.cuh", "intra_sched.cuh"]   # included by every source
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
@@ -39,7 +39,7 @@ def build(name: str) -> str:
     src = os.path.join(csrc, SOURCES[name])
     deps = [src] + [os.path.join(csrc, h) for h in HEADERS]
     return build_once(lib_path(name), deps,
-                      lambda out: [_nvcc(), *NVCC_FLAGS, src, "-o", out])
+                      lambda out: [nvcc(), *NVCC_FLAGS, src, "-o", out])
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,16 +5,18 @@ Counterpart of the JAX package's models/pipeline.py main path
 parsed picture
 
   1. one host->device copy of the native parser's packed arenas and the
-     intra job meta (`fs.native_pack`);
+     intra job meta with each job's wavefront level (`fs.native_pack`);
   2. level rebuild from the scan-prefix payload (`_arena_levels`);
   3. dequant + inverse transform per TU size (ops/idct.py) and the slot
      scatter into residual planes (`_residual_acc`);
   4. PCM prefill;
-  5. kernel meta derivation and one fused intra kernel over every intra
-     TU in decode order (ops/intra_fused.py): the whole-frame kernel
-     (csrc/intra_fused.cu) when the padded planes fit the JAX package's
-     whole-frame gate, else the banded one (csrc/intra_fused_banded.cu)
-     on band-sorted meta (`TorchEngine.fused_plan`);
+  5. kernel meta derivation, the level schedule (`level_schedule`, on
+     the device) and ONE launch of a fused intra kernel that runs every
+     intra TU, wavefront level by level (ops/intra_fused.py): the
+     whole-frame kernel (csrc/intra_fused.cu) when the padded planes fit
+     the JAX package's whole-frame gate, else the banded one
+     (csrc/intra_fused_banded.cu) on band-sorted meta
+     (`TorchEngine.fused_plan`);
   6. crop + downcast into one flat uint8 (uint16 above 8 bits) tensor
      that stays on the device as the DPB entry (`TorchPlanes` fetches it
      to the host lazily).
@@ -30,9 +32,10 @@ import numpy as np
 import torch
 
 from ..ops.idct import residual_bucket
-from ..ops.intra_fused import (OY, OX, band_plan, derive_meta16,
-                               intra_fused, intra_fused_banded, padded_dims,
-                               sort_meta_by_band)
+from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
+                               derive_meta16, intra_fused,
+                               intra_fused_banded, level_schedule,
+                               padded_dims, sort_meta_by_band)
 from ..ops.tables import TABLES
 from ..symbols import FrameSymbols
 
@@ -245,22 +248,26 @@ class TorchEngine:
 
     def reconstruct(self, fs: FrameSymbols, ref_planes=None) -> TorchPlanes:
         """Reconstruct one parsed picture; the output stays on the
-        device. ref_planes is unused until inter prediction is ported."""
+        device and nothing is read back from it. ref_planes is unused
+        until inter prediction is ported."""
         k = self.prepare(fs)
-        planes = (k["luma"], k["chroma"], k["res_l"], k["res_c"], k["bd"])
+        tail = (k["luma"], k["chroma"], k["res_l"], k["res_c"], k["bd"],
+                k["order"], k["level_bounds"])
         if k["bounds"] is None:
-            intra_fused(k["meta"], k["n"], *planes)
+            intra_fused(k["meta"], k["n"], *tail)
         else:
-            intra_fused_banded(k["meta"], k["bounds"], k["n"], *planes)
+            intra_fused_banded(k["meta"], k["bounds"], k["n"], *tail)
         return TorchPlanes(crop_pack(k["luma"], k["chroma"], *k["dims"],
                                      k["bd"]), *k["dims"])
 
     def prepare(self, fs: FrameSymbols) -> dict:
         """Steps 1-5 up to the intra kernel: the kernel's arguments
-        (meta, n, luma, chroma, res_l, res_c, bd, and bounds, None for
-        the whole-frame kernel) plus the frame dims (H, W, Hc, Wc), all
-        on this engine's device. For a banded plan the meta is band
-        sorted and the planes have `band_plan`'s dims."""
+        (meta, n, luma, chroma, res_l, res_c, bd, order, level_bounds,
+        and bounds, None for the whole-frame kernel) plus the frame dims
+        (H, W, Hc, Wc), all on this engine's device. For a banded plan
+        the meta is band sorted (its bounds checked here, on the host)
+        and the planes have `band_plan`'s dims. The level schedule is
+        made on the device from the uploaded level row."""
         check_slice(fs)
         sps = fs.sps
         H, W = sps.height, sps.width
@@ -271,13 +278,16 @@ class TorchEngine:
         hl, wl, hc, wc = plan[1]
         npk = fs.native_pack
         n = npk["n"]
-        host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta"]]
+        host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
         if plan[0] == "banded":
-            host[3], bounds = sort_meta_by_band(npk["meta"], n, plan[2], vs,
-                                                plan[3])
+            host[3], bounds = sort_meta_by_band(npk["meta6"], n, plan[2],
+                                                vs, plan[3])
+            check_rising(bounds, n, "bounds")
             host.append(bounds)
-        arena4, arena16, escs, meta8, *rest = _upload(host, self.device)
+        arena4, arena16, escs, meta6, *rest = _upload(host, self.device)
         bounds = rest[0] if rest else None
+        order, level_bounds = level_schedule(meta6[5], n,
+                                             fs.native_raw["n_levels"])
         acc_l, acc_c = _residual_acc(arena4, arena16, escs, caps=npk["caps"],
                                      H=H, W=W, Hc=Hc, Wc=Wc, bd=bd)
         res_l = torch.zeros((hl, wl), dtype=torch.int32, device=self.device)
@@ -305,8 +315,8 @@ class TorchEngine:
                                  device=self.device)
 
         meta16 = derive_meta16(
-            meta8, sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
+            meta6[:5], sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
             c444=False, strong=bool(sps.strong_intra_smoothing))
-        return dict(meta=meta16, n=n, bounds=bounds, luma=luma,
-                    chroma=chroma, res_l=res_l, res_c=res_c, bd=bd,
-                    dims=(H, W, Hc, Wc))
+        return dict(meta=meta16, n=n, bounds=bounds, order=order,
+                    level_bounds=level_bounds, luma=luma, chroma=chroma,
+                    res_l=res_l, res_c=res_c, bd=bd, dims=(H, W, Hc, Wc))

@@ -1,11 +1,12 @@
-"""Fused intra reconstruction: every intra TU of a frame, in decode order,
-in one kernel launch.
+"""Fused intra reconstruction: every intra TU of a frame in one kernel
+launch, the jobs of each wavefront level side by side.
 
 Counterpart of the JAX package's ops/intra_fused.py (`_build`, the
 whole-frame Pallas kernel, `_build_banded`, its banded twin for large
 frames, and their per-TU body `_job`). The hand-written CUDA kernels
-live in csrc/intra_fused.cu and csrc/intra_fused_banded.cu (per-TU body
-shared in csrc/intra_job.cuh); this module holds what surrounds them:
+live in csrc/intra_fused.cu and csrc/intra_fused_banded.cu (scheduler
+shared in csrc/intra_sched.cuh, per-TU body in csrc/intra_job.cuh); this
+module holds what surrounds them:
 
   - the padded plane layout (origin (OY, OX) = (8, 128), bottom pad 48
     rows, right pad to a 128 multiple + 256), kept from the JAX package
@@ -14,12 +15,22 @@ shared in csrc/intra_job.cuh); this module holds what surrounds them:
     job meta (`sort_meta_by_band`);
   - `derive_meta16`: the kernel's [16, npad] job meta from the 5 packed
     rows the native parser emits;
+  - `level_schedule`: the jobs' order by wavefront level and the level
+    bounds, from the level the native parser gives each job;
   - `intra_fused_ref` / `intra_fused_banded_ref`: the plain PyTorch
     versions (a Python loop over jobs, tensor ops per TU), used for CPU
     tensors and as the yardstick the kernels are held against on the
     card;
-  - `intra_fused` / `intra_fused_banded`: the wrappers, with their
-    launch counters.
+  - `intra_fused` / `intra_fused_banded`: the wrappers of the
+    level-parallel kernels, and `intra_fused_serial`, the serial-order
+    entry kept for checking, each with its launch counter.
+
+Levels. A job's level is 1 + the highest level among the jobs that
+wrote its available neighbours (0 where the neighbour was not written
+by a job: PCM samples, and later inter blocks, are in the planes before
+the kernel starts). Jobs of one level are independent; level L may
+start when levels below L are done. The planes never depend on each
+other, so one level index serves all three.
 
 Bit-exact with the JAX package's ops/intra_np.py (hevcpred_template.c:
 intra_pred :30, pred_planar :359, pred_dc :388, pred_angular :419;
@@ -42,6 +53,9 @@ from .tables import TABLES
 
 OY, OX = 8, 128
 BOT, RIGHT = 48, 256
+# csrc/intra_sched.cuh: a block's 8 warps form kWarpsPerBlock / kTeam
+# teams, each running one job at a time
+TEAMS_PER_BLOCK = 2
 
 
 def padded_dims(h: int, w: int) -> tuple[int, int]:
@@ -88,8 +102,9 @@ def band_plan(H, W, Hc, Wc, cs, vs):
 def sort_meta_by_band(meta8: np.ndarray, n: int, band_h: int, vs: int,
                       nb: int):
     """Stable sort of the first n job columns of the packed meta
-    [5, npad] by band; returns (sorted meta, bounds [nb+1] int32), band
-    k holding jobs bounds[k]..bounds[k+1]. Row 0 is the buffer y (frame
+    [5, npad] (or [6, npad]: with the level row, which is carried
+    along) by band; returns (sorted meta, bounds [nb+1] int32), band k
+    holding jobs bounds[k]..bounds[k+1]. Row 0 is the buffer y (frame
     y + OY), the plane rides in row 2 bits 2-3, and a chroma band is
     band_h >> vs rows. Stability keeps decode order inside a band, which
     keeps every intra dependency: top references come from row y - 1
@@ -136,6 +151,31 @@ def derive_meta16(meta8: torch.Tensor, sdis: bool, c444: bool,
     return torch.stack([r.to(torch.int32) for r in rows]).contiguous()
 
 
+def level_schedule(level: torch.Tensor, n: int, n_levels: int):
+    """The level-parallel kernels' schedule from each job's wavefront
+    level (`level` [>= n], any integer dtype, values 1..n_levels, in the
+    meta's job order): returns (order int32 [n], level_bounds int32
+    [n_levels + 1]) on level's device. `order` lists the jobs by level,
+    stably (so decode order inside a level and, on band-sorted meta,
+    band then decode order); level L (1-based) holds the jobs
+    order[level_bounds[L-1]:level_bounds[L]], and level_bounds rises
+    from 0 to n. Tensor ops only: no host synchronisation."""
+    sorted_lv, order = torch.sort(level[:n].to(torch.int32), stable=True)
+    edges = torch.arange(1, n_levels + 2, dtype=torch.int32,
+                         device=level.device)
+    level_bounds = torch.searchsorted(sorted_lv, edges)
+    return order.to(torch.int32), level_bounds.to(torch.int32)
+
+
+def check_rising(values, n: int, name: str):
+    """Raise unless the host sequence `values` (band bounds or level
+    bounds) rises from 0 to n."""
+    b = [int(v) for v in values]
+    if not b or b[0] != 0 or b[-1] != n or \
+            any(p > q for p, q in zip(b, b[1:])):
+        raise ValueError(f"{name} must rise from 0 to n={n}: {b}")
+
+
 # =========================================================================
 # Plain version
 # =========================================================================
@@ -148,8 +188,9 @@ def _sample_groups(s: int) -> list[int]:
 
 
 def _job_ref(buf, res, s: int, bd: int, f: list[int]):
-    """One TU: gather, substitute, filter, predict, add residual, clip,
-    store into `buf` in place. f: the job's 16 meta fields."""
+    """One TU: gather, substitute, filter, predict, add residual, clip;
+    returns the s x s block for buf[y:y+s, x:x+s] (nothing is stored).
+    f: the job's 16 meta fields."""
     y, x, mode, do_filter = f[0], f[1], f[3], f[5]
     angle, inv, strong_allowed, edge = f[8], f[9], f[10], f[12]
     n = 4 * s + 1
@@ -226,52 +267,86 @@ def _job_ref(buf, res, s: int, bd: int, f: list[int]):
             pr[:, 0] = (top[0] + ((left[:s] - corner) >> 1)).clamp(0, maxv)
         if edge and mode == 10:
             pr[0, :] = (left[0] + ((top[:s] - corner) >> 1)).clamp(0, maxv)
-    blk = (pr + res[y:y + s, x:x + s]).clamp(0, maxv)
-    buf[y:y + s, x:x + s] = blk.to(buf.dtype)
+    return (pr + res[y:y + s, x:x + s]).clamp(0, maxv).to(buf.dtype)
 
 
-def _jobs_ref(meta, lo, hi, luma, chroma, res_l, res_c, bd):
-    """Jobs lo..hi-1 of meta, one at a time in meta order."""
-    for f in meta[:, lo:hi].to("cpu").T.tolist():
-        plane = f[4]
+def _jobs_ref(meta, jobs, luma, chroma, res_l, res_c, bd, together=False):
+    """The jobs `jobs` (column indices into meta), one at a time in that
+    order, or, with together=True, as jobs that run side by side: all of
+    them read the planes as they were before any of them stored."""
+    stores = []
+    for f in meta[:, jobs].to("cpu").T.tolist():
+        plane, s = f[4], 4 << f[2]
         buf, res = (luma, res_l) if plane == 0 else \
             (chroma[plane - 1], res_c[plane - 1])
-        _job_ref(buf, res, 4 << f[2], bd, f)
+        dst = buf[f[0]:f[0] + s, f[1]:f[1] + s]
+        blk = _job_ref(buf, res, s, bd, f)
+        if together:
+            stores.append((dst, blk))
+        else:
+            dst.copy_(blk)
+    for dst, blk in stores:
+        dst.copy_(blk)
 
 
-def intra_fused_ref(meta, n, luma, chroma, res_l, res_c, bd):
+def _levels_ref(meta, luma, chroma, res_l, res_c, bd, order, level_bounds):
+    """Level by level, each level's jobs side by side (`_jobs_ref` with
+    together=True): what the level-parallel kernels compute, provided no
+    job reads what another job of its level writes."""
+    order = order.to("cpu")
+    b = level_bounds.tolist()
+    for lo, hi in zip(b, b[1:]):
+        if hi > lo:
+            _jobs_ref(meta, order[lo:hi].long(), luma, chroma, res_l, res_c,
+                      bd, together=True)
+
+
+def intra_fused_ref(meta, n, luma, chroma, res_l, res_c, bd, order=None,
+                    level_bounds=None):
     """Plain PyTorch version of the fused intra kernel: same arguments and
-    in-place effect as `intra_fused`, one job at a time in meta order."""
-    _jobs_ref(meta, 0, n, luma, chroma, res_l, res_c, bd)
+    in-place effect as `intra_fused`. Without a schedule the jobs run one
+    at a time in meta order (decode order); with `order` and
+    `level_bounds` (`level_schedule`) they run level by level, the jobs
+    of a level all reading the planes before any of them stores, as the
+    kernel's warps may."""
+    if order is None:
+        _jobs_ref(meta, slice(0, n), luma, chroma, res_l, res_c, bd)
+    else:
+        _levels_ref(meta, luma, chroma, res_l, res_c, bd, order,
+                    level_bounds)
     return luma, chroma
 
 
-def intra_fused_banded_ref(meta, bounds, n, luma, chroma, res_l, res_c, bd):
+def intra_fused_banded_ref(meta, bounds, n, luma, chroma, res_l, res_c, bd,
+                           order=None, level_bounds=None):
     """Plain PyTorch version of the banded kernel: same arguments and
-    in-place effect as `intra_fused_banded`; band k runs the jobs
-    bounds[k]..bounds[k+1] of the band-sorted meta, bands in order."""
-    b = bounds.tolist()
-    for k in range(len(b) - 1):
-        _jobs_ref(meta, b[k], b[k + 1], luma, chroma, res_l, res_c, bd)
+    in-place effect as `intra_fused_banded`. Without a schedule, band k
+    runs the jobs bounds[k]..bounds[k+1] of the band-sorted meta one at
+    a time, bands in order; with `order` and `level_bounds` the jobs run
+    level by level across all bands, as in `intra_fused_ref`."""
+    if order is None:
+        b = bounds.tolist()
+        for lo, hi in zip(b, b[1:]):
+            _jobs_ref(meta, slice(lo, hi), luma, chroma, res_l, res_c, bd)
+    else:
+        _levels_ref(meta, luma, chroma, res_l, res_c, bd, order,
+                    level_bounds)
     return luma, chroma
 
 
 # =========================================================================
-# Kernel wrapper
+# Kernel wrappers
 # =========================================================================
 
 def _check(meta, n, luma, chroma, res_l, res_c, bd):
     if not 1 <= bd <= 16:
         raise ValueError(f"bit depth {bd} out of range")
     dev = luma.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     for name, t in (("meta", meta), ("luma", luma), ("chroma", chroma),
                     ("res_l", res_l), ("res_c", res_c)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: dtype {t.dtype}, want int32")
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, luma on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+        _check_i32(name, t, dev)
     if meta.dim() != 2 or meta.shape[0] != 16 or not 0 <= n <= meta.shape[1]:
         raise ValueError(f"meta {tuple(meta.shape)} with n={n}")
     if luma.dim() != 2 or chroma.dim() != 3 or chroma.shape[0] != 2:
@@ -281,100 +356,178 @@ def _check(meta, n, luma, chroma, res_l, res_c, bd):
         raise ValueError("residual planes must match the recon planes")
 
 
-def intra_fused(meta, n, luma, chroma, res_l, res_c, bd):
+def _check_i32(name, t, dev):
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: dtype {t.dtype}, want int32")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, luma on {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _check_vector(name, t, n, dev):
+    """An int32 vector on dev; on the CPU, where reading it costs no
+    device synchronisation, also one that rises from 0 to n."""
+    _check_i32(name, t, dev)
+    if t.dim() != 1 or t.shape[0] < 1:
+        raise ValueError(f"{name} {tuple(t.shape)}: want a vector")
+    if dev.type == "cpu":
+        check_rising(t.tolist(), n, name)
+
+
+def _check_schedule(order, level_bounds, n, dev):
+    _check_i32("order", order, dev)
+    if order.dim() != 1 or order.shape[0] != n:
+        raise ValueError(f"order {tuple(order.shape)}: want [n={n}]")
+    _check_vector("level_bounds", level_bounds, n, dev)
+    if dev.type == "cpu" and \
+            not torch.equal(order.sort().values.long(), torch.arange(n)):
+        raise ValueError("order is not a permutation of the n jobs")
+
+
+def _launch_levels(name, fn, meta, n, order, level_bounds, grid, luma,
+                   chroma, res_l, res_c, bd):
+    """One cooperative launch of level-parallel kernel `name` on the
+    current stream; counts it on the wrapper `fn`."""
+    lib = _lib(name)
+    with torch.cuda.device(luma.device):
+        limit = ctypes.c_int(0)
+        rc = getattr(lib, f"{name}_max_grid")(ctypes.byref(limit))
+        if rc != 0:
+            raise RuntimeError(f"{name}: occupancy query failed: "
+                               f"cudaError_t {rc}")
+        if grid is None:
+            sms = torch.cuda.get_device_properties(luma.device) \
+                .multi_processor_count
+            grid = min(sms, limit.value)
+        if not 1 <= grid <= limit.value:
+            raise ValueError(f"{name}: grid {grid} outside 1..{limit.value} "
+                             f"co-resident blocks")
+        done = torch.zeros(1, dtype=torch.int32, device=luma.device)
+        rc = getattr(lib, f"{name}_launch")(
+            meta.data_ptr(), meta.shape[1], n, order.data_ptr(),
+            level_bounds.data_ptr(), level_bounds.shape[0] - 1,
+            done.data_ptr(), grid, luma.data_ptr(), luma.shape[1],
+            chroma.data_ptr(), chroma.shape[1], chroma.shape[2],
+            res_l.data_ptr(), res_c.data_ptr(), bd,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+    fn.launches += 1
+    fn.last_grid = grid
+
+
+def intra_fused(meta, n, luma, chroma, res_l, res_c, bd, order,
+                level_bounds, grid=None):
     """Run the first n jobs of meta [16, npad] int32 over the padded
     planes luma [hl, wl] and chroma [2, hc, wc] (int32, updated IN PLACE)
-    with residual planes of the same shapes; returns (luma, chroma).
+    with residual planes of the same shapes, level by level as `order`
+    int32 [n] and `level_bounds` int32 [n_levels + 1] say
+    (`level_schedule`); returns (luma, chroma).
 
-    CUDA tensors launch csrc/intra_fused.cu on the current stream and
-    count one launch; CPU tensors run `intra_fused_ref`."""
+    CUDA tensors make ONE cooperative launch of csrc/intra_fused.cu on
+    the current stream (on `grid` blocks, by default one per SM; more
+    than are co-resident raises) and count it; nothing is read back, so
+    the values of the schedule are not checked there: make them with
+    `level_schedule` (the kernel clamps what it reads from them, so a
+    wrong schedule gives wrong samples, not a wild access). CPU tensors
+    are checked in full and run `intra_fused_ref` in level order."""
     _check(meta, n, luma, chroma, res_l, res_c, bd)
+    _check_schedule(order, level_bounds, n, luma.device)
     if luma.device.type == "cpu":
-        return intra_fused_ref(meta, n, luma, chroma, res_l, res_c, bd)
-    if luma.device.type != "cuda":
-        raise ValueError(f"unsupported device {luma.device}")
-    if n == 0:
-        return luma, chroma
-    lib = _lib("intra_fused")
-    with torch.cuda.device(luma.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.intra_fused_launch(
-            meta.data_ptr(), meta.shape[1], n,
-            luma.data_ptr(), luma.shape[1],
-            chroma.data_ptr(), chroma.shape[1], chroma.shape[2],
-            res_l.data_ptr(), res_c.data_ptr(), bd, stream)
-    if rc != 0:
-        raise RuntimeError(f"intra_fused launch failed: cudaError_t {rc}")
-    intra_fused.launches += 1
+        return intra_fused_ref(meta, n, luma, chroma, res_l, res_c, bd,
+                               order, level_bounds)
+    if n:
+        _launch_levels("intra_fused", intra_fused, meta, n, order,
+                       level_bounds, grid, luma, chroma, res_l, res_c, bd)
     return luma, chroma
 
 
 intra_fused.launches = 0
 
 
-def _check_bounds(bounds, n, dev):
-    if bounds.dtype != torch.int32:
-        raise TypeError(f"bounds: dtype {bounds.dtype}, want int32")
-    if bounds.device != dev:
-        raise ValueError(f"bounds on {bounds.device}, luma on {dev}")
-    if bounds.dim() != 1 or bounds.shape[0] < 2 or \
-            not bounds.is_contiguous():
-        raise ValueError(f"bounds {tuple(bounds.shape)}: want a contiguous "
-                         f"[nbands + 1] vector")
-    b = bounds.tolist()
-    if b[0] != 0 or b[-1] != n or any(p > q for p, q in zip(b, b[1:])):
-        raise ValueError(f"bounds must rise from 0 to n={n}: {b}")
-
-
-def intra_fused_banded(meta, bounds, n, luma, chroma, res_l, res_c, bd):
+def intra_fused_banded(meta, bounds, n, luma, chroma, res_l, res_c, bd,
+                       order, level_bounds, grid=None):
     """Banded twin of `intra_fused` for band-sorted meta
-    (`sort_meta_by_band`): band k runs the jobs bounds[k]..bounds[k+1],
-    bands in order, over the planes of `band_plan`'s dims (updated IN
-    PLACE); returns (luma, chroma). bounds: int32 [nbands + 1], rising
-    from 0 to n (read once on the host to check it).
+    (`sort_meta_by_band`) over planes of `band_plan`'s dims (updated IN
+    PLACE); returns (luma, chroma). bounds: int32 [nbands + 1], band k
+    holding the jobs bounds[k]..bounds[k+1]; `order` and `level_bounds`:
+    the `level_schedule` of the band-sorted jobs (level, then band, then
+    decode order). The levels run frame-wide, across the bands.
 
-    CUDA tensors launch csrc/intra_fused_banded.cu on the current stream
-    and count one launch; CPU tensors run `intra_fused_banded_ref`."""
+    CUDA tensors make ONE cooperative launch of
+    csrc/intra_fused_banded.cu on the current stream and count it.
+    Nothing is read back from the device: check `bounds` on the host
+    before the upload (`check_rising`), as `TorchEngine.prepare` does.
+    CPU tensors are checked in full and run `intra_fused_banded_ref` in
+    level order."""
     _check(meta, n, luma, chroma, res_l, res_c, bd)
-    _check_bounds(bounds, n, luma.device)
+    _check_vector("bounds", bounds, n, luma.device)
+    if bounds.shape[0] < 2:
+        raise ValueError(f"bounds {tuple(bounds.shape)}: want [nbands + 1]")
+    _check_schedule(order, level_bounds, n, luma.device)
     if luma.device.type == "cpu":
         return intra_fused_banded_ref(meta, bounds, n, luma, chroma, res_l,
-                                      res_c, bd)
-    if luma.device.type != "cuda":
-        raise ValueError(f"unsupported device {luma.device}")
-    if n == 0:
-        return luma, chroma
-    lib = _lib("intra_fused_banded")
-    with torch.cuda.device(luma.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.intra_fused_banded_launch(
-            meta.data_ptr(), meta.shape[1], n,
-            bounds.data_ptr(), bounds.shape[0] - 1,
-            luma.data_ptr(), luma.shape[1],
-            chroma.data_ptr(), chroma.shape[1], chroma.shape[2],
-            res_l.data_ptr(), res_c.data_ptr(), bd, stream)
-    if rc != 0:
-        raise RuntimeError(f"intra_fused_banded launch failed: "
-                           f"cudaError_t {rc}")
-    intra_fused_banded.launches += 1
+                                      res_c, bd, order, level_bounds)
+    if n:
+        _launch_levels("intra_fused_banded", intra_fused_banded, meta, n,
+                       order, level_bounds, grid, luma, chroma, res_l,
+                       res_c, bd)
     return luma, chroma
 
 
 intra_fused_banded.launches = 0
 
+
+def intra_fused_serial(meta, n, luma, chroma, res_l, res_c, bd):
+    """The first n jobs one after the other in meta order (decode order,
+    or band order on band-sorted meta), planes updated IN PLACE: the
+    yardstick that the level-parallel kernels are held against on whole
+    frames. For checking only; no decode path calls it.
+
+    CUDA tensors launch the one-warp kernel of csrc/intra_fused.cu and
+    count it; CPU tensors run `intra_fused_ref` in meta order."""
+    _check(meta, n, luma, chroma, res_l, res_c, bd)
+    if luma.device.type == "cpu":
+        return intra_fused_ref(meta, n, luma, chroma, res_l, res_c, bd)
+    if n:
+        lib = _lib("intra_fused")
+        with torch.cuda.device(luma.device):
+            rc = lib.intra_fused_serial_launch(
+                meta.data_ptr(), meta.shape[1], n,
+                luma.data_ptr(), luma.shape[1],
+                chroma.data_ptr(), chroma.shape[1], chroma.shape[2],
+                res_l.data_ptr(), res_c.data_ptr(), bd,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"intra_fused_serial launch failed: "
+                               f"cudaError_t {rc}")
+        intra_fused_serial.launches += 1
+    return luma, chroma
+
+
+intra_fused_serial.launches = 0
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PLANES = [_P, _I, _P, _I, _I, _P, _P, _I, _P]   # luma .. bd, stream
+_LEVELS = [_P, _I, _I, _P, _P, _I, _P, _I] + _PLANES
 _ARGTYPES = {
-    "intra_fused": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P],
-    "intra_fused_banded": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P,
-                           _I, _P],
+    "intra_fused_launch": _LEVELS,
+    "intra_fused_banded_launch": _LEVELS,
+    "intra_fused_serial_launch": [_P, _I, _I] + _PLANES,
+    "intra_fused_max_grid": [ctypes.POINTER(_I)],
+    "intra_fused_banded_max_grid": [ctypes.POINTER(_I)],
 }
 
 
 def _lib(name):
+    """Kernel library `name`, built at first use, with its C functions'
+    argument types set."""
     from .. import kernels
     lib = kernels.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _I
+    for fname, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, fname, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = _I
     return lib

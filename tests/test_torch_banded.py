@@ -201,13 +201,15 @@ def test_banded_ref_matches_whole_ref_and_np_decoder(name, monkeypatch):
                 assert np.array_equal(got[c], r[c]), (fs.poc, c)
 
 
-def _banded_planes(fs, fn, device="cpu"):
+def _banded_planes(fs, fn, device="cpu", levels=False):
     """Cropped [Y, Cb, Cr] after fn (a banded kernel or its plain
-    version) on the prepared banded inputs."""
+    version) on the prepared banded inputs, band by band or, with
+    levels=True, with prepare()'s level schedule."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine, crop_pack
     k = TorchEngine(device).prepare(fs)
+    sched = (k["order"], k["level_bounds"]) if levels else ()
     fn(k["meta"], k["bounds"], k["n"], k["luma"], k["chroma"], k["res_l"],
-       k["res_c"], k["bd"])
+       k["res_c"], k["bd"], *sched)
     H, W, Hc, Wc = k["dims"]
     flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, k["bd"]) \
         .cpu().numpy()
@@ -233,6 +235,12 @@ def test_banded_prepare_sorts_meta_and_uses_band_dims(monkeypatch):
     assert np.array_equal(k["bounds"].numpy(), bounds)
     assert torch.equal(k["meta"], derive_meta16(torch.from_numpy(m8), False,
                                                 False, False))
+    # the level row rides through the same band sort
+    m6, _ = sort_meta_by_band(fs.native_pack["meta6"], k["n"], bh, 1, nb)
+    assert np.array_equal(m6[:5], m8)
+    lv = m6[5, :k["n"]].astype(np.int64)
+    order = k["order"].numpy()
+    assert np.array_equal(order, np.argsort(lv, kind="stable"))
 
 
 def test_banded_wrapper_rejects_bad_bounds():
@@ -240,15 +248,19 @@ def test_banded_wrapper_rejects_bad_bounds():
     meta = torch.zeros((16, 8), dtype=torch.int32)
     luma = torch.zeros((64, 512), dtype=torch.int32)
     chroma = torch.zeros((2, 64, 512), dtype=torch.int32)
-    args = (luma, chroma, luma, chroma, 8)
     ok = torch.tensor([0, 0, 0], dtype=torch.int32)
+    args = (luma, chroma, luma, chroma, 8, torch.zeros(0, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
     intra_fused_banded(meta, ok, 0, *args)
     with pytest.raises(TypeError):
         intra_fused_banded(meta, ok.long(), 0, *args)
+    args4 = (luma, chroma, luma, chroma, 8,
+             torch.arange(4, dtype=torch.int32),
+             torch.tensor([0, 4], dtype=torch.int32))
     for bad in ([0, 3, 5], [0, 5, 4], [1, 2, 4], [0], [4, 0, 4]):
         with pytest.raises(ValueError):
             intra_fused_banded(meta, torch.tensor(bad, dtype=torch.int32),
-                               4, *args)
+                               4, *args4)
     with pytest.raises(ValueError):
         intra_fused_banded(meta, torch.tensor([[0, 0]], dtype=torch.int32),
                            0, *args)
@@ -343,6 +355,7 @@ def test_banded_kernel_matches_plain(name, monkeypatch, cuda):
         k = TorchEngine(cuda).prepare(fs)
         assert k["bounds"] is not None
         planes = {}
+        sched = (k["order"], k["level_bounds"])
         for key, fn in (("kernel", intra_fused_banded),
                         ("plain", intra_fused_banded_ref),
                         ("whole", None)):
@@ -350,8 +363,11 @@ def test_banded_kernel_matches_plain(name, monkeypatch, cuda):
             before = intra_fused_banded.launches
             if fn is None:
                 intra_fused(k["meta"], k["n"], luma, chroma, k["res_l"],
-                            k["res_c"], k["bd"])
-            else:
+                            k["res_c"], k["bd"], *sched)
+            elif fn is intra_fused_banded:
+                fn(k["meta"], k["bounds"], k["n"], luma, chroma,
+                   k["res_l"], k["res_c"], k["bd"], *sched)
+            else:           # the plain version, band by band
                 fn(k["meta"], k["bounds"], k["n"], luma, chroma,
                    k["res_l"], k["res_c"], k["bd"])
             torch.cuda.synchronize()

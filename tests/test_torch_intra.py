@@ -150,11 +150,14 @@ def _np_planes(data):
     return [p.planes for p in d.decode(data) + d.flush()]
 
 
-def _fused(fs, device, fn):
+def _fused(fs, device, fn, levels=False):
+    """Cropped [Y, Cb, Cr] after fn on the prepared inputs, in meta order
+    or, with levels=True, with prepare()'s level schedule."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine, crop_pack
     k = TorchEngine(device).prepare(fs)
+    sched = (k["order"], k["level_bounds"]) if levels else ()
     fn(k["meta"], k["n"], k["luma"], k["chroma"], k["res_l"], k["res_c"],
-       k["bd"])
+       k["bd"], *sched)
     H, W, Hc, Wc = k["dims"]
     flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, k["bd"]) \
         .cpu().numpy()
@@ -188,7 +191,7 @@ def test_intra_fused_kernel_matches_plain(name, monkeypatch, cuda):
     data, _ = _frame_case(name, monkeypatch)
     for fs in parsed_port(data):
         before = intra_fused.launches
-        got = _fused(fs, cuda, intra_fused)
+        got = _fused(fs, cuda, intra_fused, levels=True)
         torch.cuda.synchronize()
         assert intra_fused.launches == before + 1
         want = _fused(fs, cuda, intra_fused_ref)
@@ -201,11 +204,14 @@ def test_wrapper_rejects_bad_inputs():
     meta = torch.zeros((16, 8), dtype=torch.int32)
     luma = torch.zeros((64, 512), dtype=torch.int32)
     chroma = torch.zeros((2, 64, 512), dtype=torch.int32)
+    sched = (torch.zeros(0, dtype=torch.int32),
+             torch.zeros(1, dtype=torch.int32))
+    intra_fused(meta, 0, luma, chroma, luma, chroma, 8, *sched)
     with pytest.raises(TypeError):
-        intra_fused(meta, 0, luma.float(), chroma, luma, chroma, 8)
+        intra_fused(meta, 0, luma.float(), chroma, luma, chroma, 8, *sched)
     with pytest.raises(ValueError):
-        intra_fused(meta, 9, luma, chroma, luma, chroma, 8)
+        intra_fused(meta, 9, luma, chroma, luma, chroma, 8, *sched)
     with pytest.raises(ValueError):
-        intra_fused(meta, 0, luma, chroma, luma[:32], chroma, 8)
+        intra_fused(meta, 0, luma, chroma, luma[:32], chroma, 8, *sched)
     with pytest.raises(ValueError):
-        intra_fused(meta, 0, luma.T, chroma, luma, chroma, 8)
+        intra_fused(meta, 0, luma.T, chroma, luma, chroma, 8, *sched)
