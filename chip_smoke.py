@@ -3,35 +3,47 @@
 
     python3 chip_smoke.py
 
-Two bench streams: i_main (bench_streams/r4a_i_main_832x480.265, 832x480
-all-intra Main, 32 frames, WPP; whole-frame intra kernel) and main10_4k
-(bench_streams/r4a_main10_4k.265, 3840x2160 all-intra Main10, 3 frames,
-WPP; banded intra kernel). Phases (each one fails the run with a
-non-zero exit):
+Five bench streams (bench_streams/r4a_*.265, each decoded whole):
+i_main (832x480 all-intra Main, 32 frames, WPP; whole-frame intra
+kernel), main10_4k (3840x2160 all-intra Main10, 3 frames, WPP; banded
+intra kernel), and three hierarchical-B streams whose every picture takes
+the banded kernel on top of the inter prediction: ra_main_1080p (17
+frames, no in-loop filters), ra_tiles_1080p (9 frames, 4x2 tiles,
+deblocking + SAO) and ra_main10_4k (9 frames, Main10 4K, tiles,
+deblocking + SAO). Phases (each one fails the run with a non-zero exit):
   1. build the CUDA kernels (one nvcc per source, all at once) and the
      native parse core from the checkout's sources; print nvcc's
      register / shared-memory report for each kernel;
   2. print the card's name and power limit;
-  3. parse frame 0 of each stream and hold each level-parallel kernel
-     against its plain PyTorch version on the card on the same inputs,
-     requiring identical planes: the whole-frame kernel on i_main frame
-     0; the banded kernel on bands 0-1 of 4K frame 0 (the plain version
-     takes ~0.5 ms a job), and against the whole-frame kernel on all of
-     4K frame 0 (same band-sorted meta and band-layout planes). Then, on
-     the whole of both frames: level-parallel kernel == the serial-order
-     entry (one warp, jobs in meta order), and REPEATS launches in a row
-     give identical planes (a hand-over that is almost right fails here).
-     Print each frame's level-width histogram; time the kernels;
+  3. hold each level-parallel kernel against its plain PyTorch version on
+     the card on the same inputs, requiring identical planes: the
+     whole-frame kernel on i_main frame 0; the banded kernel on bands 0-1
+     of 4K frame 0 (the plain version takes ~0.5 ms a job), and against
+     the whole-frame kernel on all of 4K frame 0 (same band-sorted meta
+     and band-layout planes). On the whole of both frames:
+     level-parallel kernel == the serial-order entry (one warp, jobs in
+     meta order), and REPEATS launches in a row give identical planes (a
+     hand-over that is almost right fails here). On the first picture of
+     ra_main_1080p (decode order) with both inter blocks and intra jobs:
+     the banded kernel on the real inter prefill == its plain version ==
+     the serial-order entry, and with no jobs (n == 0, an all-inter
+     picture's call) it launches nothing and leaves the prefill as it is.
+     On that picture and on one of ra_main10_4k: the MC's pair mode ==
+     its tap mode exactly, both timed in turns. Print each frame's
+     level-width histogram; time the kernels;
   4. decode every frame of each stream through `Decoder(device="cuda")`
      with every launch counter set to 0 just before, require each
-     stream's kernel to have launched once per frame and the other
-     kernel and the serial-order entry not at all, and require the
-     per-frame md5 (cropped Y, U, V as uint8, or uint16 above 8 bits, as
-     bench.py hashes) to equal the reference decoder's sidecar for every
-     frame;
+     stream's kernel to have launched once per picture that has an intra
+     job and the other kernel and the serial-order entry not at all, and
+     require the per-frame md5 (cropped Y, U, V as uint8, or uint16 above
+     8 bits, in output order, as bench.py hashes) to equal the reference
+     decoder's sidecar for every frame;
   5. print decode rates (every timed pass is md5-checked too), stage
-     breakdowns, kernel times, launch counts, and one JSON line with
-     every kernel's record; the last line is the device summary.
+     breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
+     rate, MC stage 2, combine, kernel, deblock, SAO, crop, fetch) with
+     the torch-op stages' byte bounds, kernel times, launch counts, and
+     one JSON line with every kernel's record; the last line is the
+     device summary.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -47,8 +59,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAMS = {"i_main": "r4a_i_main_832x480.265",
-           "main10_4k": "r4a_main10_4k.265"}
-KERNEL_OF = {"i_main": "intra_fused", "main10_4k": "intra_fused_banded"}
+           "main10_4k": "r4a_main10_4k.265",
+           "ra_main_1080p": "r4a_ra_main_1080p.265",
+           "ra_tiles_1080p": "r4a_ra_tiles_1080p.265",
+           "ra_main10_4k": "r4a_ra_main10_4k.265"}
+KERNEL_OF = {name: "intra_fused" if name == "i_main" else
+             "intra_fused_banded" for name in STREAMS}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 REPS = 5
 REPEATS = 20        # launches in a row that must give identical planes
@@ -192,15 +208,18 @@ def _kernel_ms(k, banded, reps):
 
 def _bound_ms(fs, k):
     """Least time for the work on this card, from bytes: the jobs' meta
-    and order (64 + 4 B a job), the level bounds, the frame's residual
-    read once, the reconstruction written once (8 B a sample), and the
-    PCM samples prefilled into the starting planes (the kernel reads no
-    other sample of those planes that it has not written itself)."""
-    H, W, Hc, Wc = k["dims"]
+    and order (64 + 4 B a job), the level bounds, the residual of the
+    jobs' samples read once and their reconstruction written once (8 B a
+    sample: all of an all-intra frame, the intra TUs of an inter
+    picture), and the PCM samples prefilled into the starting planes
+    (the kernel reads no other sample of those planes that it has not
+    written itself, bar the neighbours of intra TUs beside inter blocks,
+    which are not counted)."""
     pcm = sum(p.size * p.size + 2 * (p.size >> fs.sps.vshift1)
               * (p.size >> fs.sps.hshift1) for p in fs.pcm_blocks)
+    size = fs.native_raw["ij_meta"][:, 3].astype("int64")
     nbytes = (16 + 1) * 4 * k["n"] + 4 * k["level_bounds"].numel() + \
-        2 * 4 * (H * W + 2 * Hc * Wc) + 4 * pcm
+        2 * 4 * int((size * size).sum()) + 4 * pcm
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -326,11 +345,38 @@ def check_intra_fused_banded(fs, reps=REPS):
     return rec, sum(ms_w) / reps
 
 
-def decode_all(data, fetch):
+def smoke_decoder(sync_timers=False, keep=None):
+    """A `Decoder(device="cuda")` that notes every picture's number of
+    intra jobs (`jobs`) and whether it has inter blocks (`inter`), keeps
+    the pictures for which keep(fs) holds with their references (`kept`:
+    (fs, refs) pairs in decode order), and, with sync_timers, builds its
+    engine with the per-stage timers on."""
+    from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+
+    class SmokeDecoder(Decoder):
+        def _engine(self):
+            if self._torch_engine is None:
+                self._torch_engine = TorchEngine(self.device,
+                                                 sync_timers=sync_timers)
+            return self._torch_engine
+
+        def _reconstruct(self, fs, refs):
+            self.jobs.append(fs.native_pack["n"])
+            self.inter.append(bool(fs.inter_pbs))
+            if keep is not None and keep(fs):
+                self.kept.append((fs, dict(refs)))
+            return super()._reconstruct(fs, refs)
+
+    dec = SmokeDecoder(device="cuda")
+    dec.jobs, dec.inter, dec.kept = [], [], []
+    return dec
+
+
+def decode_all(data, fetch, sync_timers=False):
     """Decode the stream; returns (pictures, seconds, decoder).
     fetch=True pulls every picture to the host inside the timed region."""
-    from openhevc_tpu_torch.decoder import Decoder
-    dec = Decoder(device="cuda")
+    dec = smoke_decoder(sync_timers)
     _sync()
     t0 = time.perf_counter()
     pics = dec.decode(data) + dec.flush()
@@ -341,47 +387,172 @@ def decode_all(data, fetch):
     return pics, time.perf_counter() - t0, dec
 
 
-def breakdown(data):
-    """Mean ms per frame of each stage run alone and synchronised: host
-    parse (native core, parse-ahead threads), prep (one H2D copy,
-    residual, PCM prefill, meta, band sort, level schedule), the intra
-    kernel of the frame's plan, crop + pack, and the device-to-host
-    fetch of the output."""
-    from openhevc_tpu_torch.models.pipeline import TorchEngine, crop_pack
-    t0 = time.perf_counter()
-    fss = parse_only(data)
-    out = {"parse": (time.perf_counter() - t0) * 1e3}
-    eng = TorchEngine("cuda")
-    for key in ("prep", "kernel", "crop_pack", "fetch"):
-        out[key] = 0.0
-    slowest_prep = 0.0
-    for fs in fss:
+def inter_picture(name):
+    """(fs, refs) of the stream's first picture in decode order with both
+    inter blocks and intra jobs; refs hold the decoded references on the
+    card."""
+    dec = smoke_decoder(keep=lambda fs: bool(fs.inter_pbs) and
+                        fs.native_pack["n"] > 0)
+    dec.decode(load_stream(name)[0])
+    dec.flush()
+    if not dec.kept:
+        raise AssertionError(f"{name}: no picture with inter blocks and "
+                             f"intra jobs")
+    return dec.kept[0]
+
+
+def check_banded_on_prefill(fs, refs, reps=REPS):
+    """Phase 3 on an inter picture: the banded kernel on the real inter
+    prefill (a sparse job list) == its plain version == the serial-order
+    entry; with n == 0 (what an all-inter picture passes) the wrapper
+    launches nothing and leaves the prefill alone. Returns a dict of
+    what was measured."""
+    import torch
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops.intra_fused import (intra_fused_banded,
+                                                    intra_fused_banded_ref)
+    k = TorchEngine("cuda").prepare(fs, refs)
+    if k["bounds"] is None or not bool(k["luma"].any()):
+        raise AssertionError("1080p inter picture: whole-frame plan or an "
+                             "empty prefill")
+    out_k = _run_kernel(k, True)
+    out_p = [k["luma"].clone(), k["chroma"].clone()]
+    plain_ms = _elapsed_ms(lambda: intra_fused_banded_ref(
+        k["meta"], k["bounds"], k["n"], *out_p, k["res_l"], k["res_c"],
+        k["bd"]))
+    err = max(_max_err(out_k, out_p), _max_err(out_k, _run_serial(k)))
+    if err != 0:
+        raise AssertionError(f"intra_fused_banded on an inter prefill "
+                             f"differs from its plain version or the "
+                             f"serial-order entry by up to {err}")
+    # n == 0: no launch, planes untouched
+    before = intra_fused_banded.launches
+    empty = (torch.zeros(0, dtype=torch.int32, device="cuda"),
+             torch.zeros(1, dtype=torch.int32, device="cuda"))
+    for fn in (intra_fused_banded, intra_fused_banded_ref):
+        out = [k["luma"].clone(), k["chroma"].clone()]
+        fn(k["meta"], torch.zeros_like(k["bounds"]), 0, *out, k["res_l"],
+           k["res_c"], k["bd"], *empty)
         _sync()
-        t0 = time.perf_counter()
-        k = eng.prepare(fs)
-        _sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        out["prep"] += ms
-        slowest_prep = max(slowest_prep, ms)
-        out["kernel"] += _elapsed_ms(lambda: _run_kernel(
-            k, k["bounds"] is not None, planes=[k["luma"], k["chroma"]]))
-        t0 = time.perf_counter()
-        flat = crop_pack(k["luma"], k["chroma"], *k["dims"], k["bd"])
-        _sync()
-        out["crop_pack"] += (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        flat.cpu()
-        out["fetch"] += (time.perf_counter() - t0) * 1e3
-    out = {k: v / len(fss) for k, v in out.items()}
-    out["prep (slowest frame)"] = slowest_prep
+        if intra_fused_banded.launches != before or \
+                _max_err(out, [k["luma"], k["chroma"]]) != 0:
+            raise AssertionError("n == 0 launched the banded kernel or "
+                                 "changed the prefill")
+    size = fs.native_raw["ij_meta"][:, 3].astype("int64")
+    H, W, Hc, Wc = k["dims"]
+    return {"poc": fs.poc, "jobs": k["n"],
+            "n_levels": fs.native_raw["n_levels"], "max_abs_err": err,
+            "intra_share": float((size * size).sum()) /
+            (H * W + 2 * Hc * Wc),
+            "ms": _kernel_ms(k, True, reps), "plain_ms": plain_ms,
+            "bound_ms": _bound_ms(fs, k)}
+
+
+def check_mc_modes(name, fs, refs):
+    """Phase 3: the inter prefill of one picture in the MC's pair mode
+    and in its tap mode must be identical. Both are timed in turns
+    (pair, tap, tap, pair; a first untimed pair run warms up): stage 1
+    with an empty cache (ms a reference, all three planes) and stage 2 +
+    combine with every reference cached (ms a picture)."""
+    import torch
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    times = {True: [], False: []}
+    want = None
+    for i, pairs in enumerate((True, True, False, False, True)):
+        eng = TorchEngine("cuda", sync_timers=True)
+        eng.MC_PAIRS_MAX_PIXELS = 1 << 62 if pairs else 0
+        k = eng.prepare(fs, refs)
+        cache = eng._stage1[pairs]
+        first = dict(eng.stage_ms)
+        eng.stage_ms.clear()
+        eng.prepare(fs, refs)
+        if cache.hits != cache.misses or not cache.misses:
+            raise AssertionError(f"{name}: stage-1 cache {cache.hits} hits, "
+                                 f"{cache.misses} misses")
+        got = (k["luma"], k["chroma"])
+        if want is None:
+            want = got
+        elif not (torch.equal(got[0], want[0]) and
+                  torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name}: tap mode differs from pair mode "
+                                 f"by up to {_max_err(got, want)}")
+        if i:
+            times[pairs].append(
+                (first["mc_stage1"] / cache.misses,
+                 eng.stage_ms["mc_stage2"], eng.stage_ms["combine"],
+                 cache.nbytes() / cache.misses, cache.misses))
+        del eng, k, cache
+    out = {}
+    for pairs, rows in times.items():
+        label = "pair" if pairs else "tap"
+        out[label] = {
+            "stage1_ms_per_reference": sum(r[0] for r in rows) / len(rows),
+            "stage2_ms_per_picture": sum(r[1] for r in rows) / len(rows),
+            "combine_ms_per_picture": sum(r[2] for r in rows) / len(rows),
+            "stage1_bytes_per_reference": rows[0][3],
+            "references": rows[0][4]}
+    print(f"phase3 {name} POC {fs.poc}: MC pair mode == tap mode (prefill "
+          f"max_abs_err 0); {json.dumps(out)}", flush=True)
     return out
+
+
+def stage_bounds(sps, pairs):
+    """Byte bounds (ms at HBM_BYTES_PER_S) of the torch-op stages of one
+    picture: each stage's inputs read once and outputs written once.
+    Stage 1 is per reference; the others per picture."""
+    from openhevc_tpu_torch.ops.mc import stage1_shape
+    H, W = sps.height, sps.width
+    Hc, Wc = H >> 1, W >> 1
+    px = H * W + 2 * Hc * Wc
+    sample = 1 if sps.bit_depth <= 8 else 2
+    s1 = 0
+    for h, w, lum in ((H, W, True), (Hc, Wc, False), (Hc, Wc, False)):
+        n = 1
+        for d in stage1_shape(h, w, lum, pairs):
+            n *= d
+        s1 += 2 * n
+    taps = 1 if pairs else (8 * H * W + 4 * 2 * Hc * Wc) / px
+    b = {"mc_stage1 (a reference)": px * sample + s1,
+         # both lists: the gathered int16 samples in, two int32 puts out
+         "mc_stage2": 2 * px * (2 * taps + 4),
+         # two puts, the residual and the pred_flag grid in; prefill out
+         "combine": px * 4 * 4,
+         "deblock": px * 4 * 2, "sao": px * 4 * 2}
+    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in b.items()}
+
+
+def breakdown(data):
+    """Mean ms per frame of each stage: the host parse run alone (native
+    core, parse-ahead threads); then one decode with the engine's
+    per-stage timers on (each stage synchronised, so nothing overlaps):
+    host packing (band sort, filter control data, motion deltas), the
+    one upload, residual, MC stage 1 / stage 2 / combine, meta + level
+    schedule, the intra kernel, deblock, SAO, crop + pack; and the
+    device-to-host fetch of every output. Returns (rows, decoder,
+    pictures)."""
+    t0 = time.perf_counter()
+    nf = len(parse_only(data))
+    out = {"parse": (time.perf_counter() - t0) * 1e3 / nf}
+    pics, _, dec = decode_all(data, fetch=False, sync_timers=True)
+    eng = dec._engine()
+    for key, ms in eng.stage_ms.items():
+        out[key] = ms / nf
+    out["prep (host_pack + upload + residual + meta_schedule)"] = sum(
+        out.get(key, 0.0) for key in ("host_pack", "upload", "residual",
+                                      "meta_schedule"))
+    t0 = time.perf_counter()
+    for p in pics:
+        p.planes.get()
+    out["fetch"] = (time.perf_counter() - t0) * 1e3 / nf
+    return out, dec, pics
 
 
 def main_path(name, counters):
     """Phase 4 on one stream: decode it with every launch counter set to
-    0 just before; require its kernel exactly once per frame, the other
-    kernel and the serial-order entry never, and every frame's md5 equal
-    to the sidecar. Returns (number of frames, launch counts, decoder)."""
+    0 just before; require its kernel exactly once per picture with an
+    intra job, the other kernel and the serial-order entry never, and
+    every frame's md5 equal to the sidecar. Returns (number of frames,
+    launch counts, decoder)."""
     data, want = load_stream(name)
     decode_all(first_frames(data, 2), fetch=True)         # warm-up
     for f in counters.values():
@@ -390,15 +561,17 @@ def main_path(name, counters):
     launches = {n: f.launches for n, f in counters.items()}
     got = hash_pics(pics)
     n_ok = sum(g == w for g, w in zip(got, want))
+    with_jobs = sum(n > 0 for n in dec.jobs)
     print(f"phase4 {name} md5 {n_ok}/{len(want)} frames equal the sidecar "
-          f"({len(pics)} decoded; launches {launches})", flush=True)
+          f"({len(pics)} decoded, {with_jobs} with intra jobs; launches "
+          f"{launches})", flush=True)
     if len(pics) != len(want) or n_ok != len(want):
         raise AssertionError(f"{name}: decoded frames differ from the "
                              f"reference md5 sidecar")
     for n, c in launches.items():
-        if n == KERNEL_OF[name] and c != len(pics):
+        if n == KERNEL_OF[name] and (c != with_jobs or c == 0):
             raise AssertionError(f"{name}: kernel {n} launched {c} times "
-                                 f"for {len(pics)} frames")
+                                 f"for {with_jobs} pictures with jobs")
         if n != KERNEL_OF[name] and c != 0:
             raise AssertionError(f"{name}: {n} launched {c} times; this "
                                  f"stream's frames are {KERNEL_OF[name]}'s")
@@ -409,7 +582,8 @@ def report(name, nf, dec):
     """Phase 5 on one stream: decode rates (outputs on the device and
     fetched to the host, alternating; every pass's frames are hashed
     after its clock stops and must equal the sidecar) and the stage
-    breakdown."""
+    breakdown (its decode md5-checked too), with the stage-1 cache's hit
+    rate and the torch-op stages' byte bounds on inter streams."""
     data, want = load_stream(name)
     for i in range(2):
         for label, fetch in (("device_resident", False),
@@ -419,8 +593,22 @@ def report(name, nf, dec):
                 raise AssertionError(f"{name}: timed pass {label}[{i}] "
                                      f"differs from the md5 sidecar")
             print(f"{name} decode_fps_{label}[{i}] {nf / dt}")
-    for k, v in breakdown(data).items():
+    rows, timed, pics = breakdown(data)
+    if hash_pics(pics) != want:
+        raise AssertionError(f"{name}: the stage-timed decode differs from "
+                             f"the md5 sidecar")
+    for k, v in rows.items():
         print(f"{name} stage_ms_per_frame {k} {v}")
+    for pairs, cache in timed._engine()._stage1.items():
+        if cache.misses:
+            refs = (cache.hits + cache.misses) / sum(timed.inter)
+            print(f"{name} mc_stage1_cache {'pair' if pairs else 'tap'} "
+                  f"mode: {cache.hits} hits, {cache.misses} misses (hit "
+                  f"rate {cache.hits / (cache.hits + cache.misses)}), "
+                  f"{refs} references a picture, "
+                  f"{cache.bufs[0].shape[0]} slots, {cache.nbytes()} B")
+            for k, v in stage_bounds(pics[0].sps, pairs).items():
+                print(f"{name} stage_bound_ms {k} {v}")
     print(f"{name} native_slices {dec.stats['native_slices']}", flush=True)
 
 
@@ -433,40 +621,65 @@ def run():
 
     # ---- phase 3: each kernel vs its plain version -----------------------
     fs = parse_only(first_frames(load_stream("i_main")[0], 1))[0]
-    recs = {"i_main": check_intra_fused(fs)}
-    r = recs["i_main"]
+    recs = {"intra_fused": check_intra_fused(fs)}
+    r = recs["intra_fused"]
     print(f"phase3 intra_fused == plain on i_main frame 0 ({r['jobs']} "
           f"jobs, {r['n_levels']} wavefront levels): max_abs_err "
           f"{r['max_abs_err']}", flush=True)
     fs = parse_only(first_frames(load_stream("main10_4k")[0], 1))[0]
-    recs["main10_4k"], whole_4k_ms = check_intra_fused_banded(fs)
-    r = recs["main10_4k"]
+    recs["intra_fused_banded"], whole_4k_ms = check_intra_fused_banded(fs)
+    r = recs["intra_fused_banded"]
     print(f"phase3 intra_fused_banded == plain on bands "
           f"0-{PLAIN_BANDS - 1} of main10_4k frame 0 ({r['plain_jobs']} "
           f"jobs): max_abs_err {r['max_abs_err']}; == intra_fused on the "
           f"whole frame ({r['jobs']} jobs, {r['bands']} bands, "
           f"{r['n_levels']} wavefront levels): max_abs_err "
           f"{r['whole_frame_max_abs_err']}", flush=True)
+    fs, refs = inter_picture("ra_main_1080p")
+    pre = check_banded_on_prefill(fs, refs)
+    print(f"phase3 intra_fused_banded on the inter prefill of ra_main_1080p "
+          f"POC {pre['poc']} ({pre['jobs']} jobs, {pre['n_levels']} levels, "
+          f"intra share {pre['intra_share']}) == plain == serial-order "
+          f"entry: max_abs_err {pre['max_abs_err']}; n == 0: no launch, "
+          f"prefill unchanged", flush=True)
+    r["max_abs_err"] = max(r["max_abs_err"], pre["max_abs_err"])
+    r["prefilled_1080p"] = pre
+    modes = {"ra_main_1080p": check_mc_modes("ra_main_1080p", fs, refs)}
+    fs, refs = inter_picture("ra_main10_4k")
+    modes["ra_main10_4k"] = check_mc_modes("ra_main10_4k", fs, refs)
+    del fs, refs
 
     # ---- phase 4: the main path of each stream ---------------------------
     runs = {name: main_path(name, counters) for name in STREAMS}
-    for name, (_, launches, _) in runs.items():
-        recs[name]["launches"] = launches[KERNEL_OF[name]]
+    for kernel, r in recs.items():
+        r["launches_by_stream"] = {
+            name: launches[kernel] for name, (_, launches, _) in runs.items()
+            if KERNEL_OF[name] == kernel}
+        r["launches"] = sum(r["launches_by_stream"].values())
 
     # ---- phase 5: report ---------------------------------------------------
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
-    for name, r in recs.items():
-        print(f"{r['name']}_kernel_ms_per_frame {r['ms']} ({name} frame 0; "
+    for name, by_mode in modes.items():
+        for mode, row in by_mode.items():
+            for key, v in row.items():
+                print(f"{name} mc_{mode}_mode {key} {v}")
+    for r, frame in zip(recs.values(), ("i_main", "main10_4k")):
+        print(f"{r['name']}_kernel_ms_per_frame {r['ms']} ({frame} frame 0; "
               f"{r['us_per_level']} us a level, {r['us_per_job']} us a job, "
               f"grid {r['grid']})")
         print(f"{r['name']}_serial_order_entry_ms {r['serial_ms']} "
-              f"({name} frame 0)")
+              f"({frame} frame 0)")
         print(f"{r['name']}_plain_ms {r['plain_ms']} "
               f"({r.get('plain_jobs', r['jobs'])} jobs)")
-        print(f"{r['name']}_launches {r['launches']} ({name})")
+        print(f"{r['name']}_launches {r['launches']} "
+              f"{json.dumps(r['launches_by_stream'])}")
     print(f"intra_fused_kernel_ms_main10_4k_frame0 {whole_4k_ms} (same "
-          f"band-sorted meta and planes)", flush=True)
+          f"band-sorted meta and planes)")
+    print(f"intra_fused_banded_kernel_ms_prefilled_1080p {pre['ms']} "
+          f"(ra_main_1080p POC {pre['poc']}, {pre['jobs']} jobs, "
+          f"{pre['n_levels']} levels; plain {pre['plain_ms']} ms; bound "
+          f"{pre['bound_ms']} ms)", flush=True)
     return list(recs.values())
 
 

@@ -1,41 +1,63 @@
 """PyTorch reconstruction pipeline (the device half of the decoder).
 
 Counterpart of the JAX package's models/pipeline.py main path
-(`JaxEngine.reconstruct` -> `_run_fused` -> `_frame_fused`): for each
-parsed picture
+(`JaxEngine.reconstruct` -> `_run_fused` -> `_inter_prefill` /
+`_frame_fused`): for each parsed picture
 
-  1. one host->device copy of the native parser's packed arenas and the
-     intra job meta with each job's wavefront level (`fs.native_pack`);
+  1. one host->device copy of the native parser's packed arenas, the
+     intra job meta with each job's wavefront level (`fs.native_pack`)
+     and, where the picture has them, the sparse motion deltas
+     (`motion_diff2`), the weighted-prediction grids and the in-loop
+     filters' control tensors (`ops/filters.py::prep_filters`);
   2. level rebuild from the scan-prefix payload (`_arena_levels`);
   3. dequant + inverse transform per TU size (ops/idct.py) and the slot
      scatter into residual planes (`_residual_acc`);
-  4. PCM prefill;
+  4. the starting planes: zeros, the PCM samples, or, on an inter
+     picture, the inter prediction (`_inter_prefill`: motion grids from
+     the deltas, two-stage MC over the stage-1 planes of the
+     device-resident references, uni / bi / weighted combine + residual;
+     ops/mc.py);
   5. kernel meta derivation, the level schedule (`level_schedule`, on
      the device) and ONE launch of a fused intra kernel that runs every
      intra TU, wavefront level by level (ops/intra_fused.py): the
      whole-frame kernel (csrc/intra_fused.cu) when the padded planes fit
      the JAX package's whole-frame gate, else the banded one
      (csrc/intra_fused_banded.cu) on band-sorted meta
-     (`TorchEngine.fused_plan`);
-  6. crop + downcast into one flat uint8 (uint16 above 8 bits) tensor
+     (`TorchEngine.fused_plan`). A picture with no intra job launches
+     nothing. Everything runs on one stream, in this order: an intra TU
+     beside inter samples reads them from the finished prefill;
+  6. whole-frame deblocking + SAO where the picture wants them
+     (ops/filters.py::apply_filters_device);
+  7. crop + downcast into one flat uint8 (uint16 above 8 bits) tensor
      that stays on the device as the DPB entry (`TorchPlanes` fetches it
-     to the host lazily).
+     to the host lazily); later pictures predict from it there.
 
-Pictures outside this path (in-loop filters, inter prediction, scaling
-lists, chroma formats other than 4:2:0, bit depths above 10 or unequal
-luma / chroma depths) raise NotImplementedError naming the ROADMAP.md
-item that brings them.
+Pictures outside this path (scaling lists, chroma formats other than
+4:2:0, bit depths above 10 or unequal luma / chroma depths, inter
+pictures with PCM blocks or with no usable reference, a filter pattern
+outside the whole-frame model) raise NotImplementedError naming the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
+
+import contextlib
+import time
+import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from ..ops.filters import (apply_filters_device, device_filters_ok,
+                           fargs_arrays, prep_filters)
 from ..ops.idct import residual_bucket
 from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
                                derive_meta16, intra_fused,
                                intra_fused_banded, level_schedule,
                                padded_dims, sort_meta_by_band)
+from ..ops.mc import (combine_plane, combine_plane_w, mc_hprefilter,
+                      mc_prefilter_pairs, mc_put_core, mc_put_pairs_core,
+                      stage1_shape)
 from ..ops.tables import TABLES
 from ..symbols import FrameSymbols
 
@@ -134,6 +156,155 @@ def _residual_acc(arena4, arena16, escs, *, caps, H, W, Hc, Wc, bd):
     return acc_l, acc_c
 
 
+def motion_diff2(pf4, slot, mv):
+    """Lossless sparse encoding of the dense per-4x4 motion grids for
+    the upload: the 2-D second difference of a field that is constant on
+    PU rectangles is nonzero only at PU corners, so the seven fields
+    (pf, slot0/1, mv l0/l1 x/y) ship as (flat index, 7 x int16) pairs:
+    ~18 B per corner instead of ~18 B per 4x4 block. Device inverse:
+    scatter + two int32 cumsums + int16 wrap (`_motion_grids_dev`);
+    wrapping int16 differences are exact under mod-2^16 arithmetic.
+    Exactly the n nonzero deltas are returned (idx int32 [n], vals
+    int16 [n, 7]): nothing here compiles per shape, so there is no
+    padding to a cap."""
+    h4, w4 = pf4.shape
+    F = np.empty((7, h4, w4), np.int16)
+    F[0] = pf4
+    F[1] = slot[0]
+    F[2] = slot[1]
+    F[3] = mv[:, :, 0, 0]
+    F[4] = mv[:, :, 0, 1]
+    F[5] = mv[:, :, 1, 0]
+    F[6] = mv[:, :, 1, 1]
+    D = F.copy()
+    D[:, 1:, :] -= F[:, :-1, :]
+    D2 = D.copy()
+    D2[:, :, 1:] -= D[:, :, :-1]
+    flat = D2.reshape(7, -1)
+    nz = np.nonzero(np.any(flat != 0, axis=0))[0]
+    return dict(idx=nz.astype(np.int32),
+                vals=np.ascontiguousarray(flat[:, nz].T), h4=h4, w4=w4)
+
+
+def _motion_grids_dev(midx, mvals, h4: int, w4: int):
+    """Device inverse of `motion_diff2`: (pf4 [h4, w4], mv [h4, w4, 2,
+    2], slot [2, h4, w4]) int32 grids. The cumsums stay int32 (torch
+    would widen them to int64); the indices are unique, so the scatter
+    is a plain indexed copy."""
+    G = torch.zeros((7, h4 * w4), dtype=torch.int32, device=midx.device)
+    G.index_copy_(1, midx.long(), mvals.T.to(torch.int32))
+    G = G.reshape(7, h4, w4).cumsum(1, dtype=torch.int32) \
+        .cumsum(2, dtype=torch.int32)
+    G = ((G + (1 << 15)) & 0xFFFF) - (1 << 15)   # int16 wrap = exact
+    mv = torch.stack([torch.stack([G[3], G[4]], dim=-1),
+                      torch.stack([G[5], G[6]], dim=-1)], dim=-2)
+    return G[0], mv, G[1:3]
+
+
+def weight_grids(fs):
+    """Per-4x4 weighted-prediction grids from ref_idx: {wg, og
+    [2, 3, h4, w4] int16, denoms (luma, chroma)}, the weighted uni/bi
+    combine inputs. None when the picture carries no prediction-weight
+    table."""
+    if fs.weights is None:
+        return None
+    mc = fs.motion
+    wt = fs.weights
+    h4, w4 = mc.pred_flag.shape
+    ridx = np.asarray(mc.ref_idx, np.int32)   # [h4,w4,2]
+    wg = np.zeros((2, 3, h4, w4), np.int16)
+    og = np.zeros((2, 3, h4, w4), np.int16)
+    for lx, key in enumerate(("l0", "l1")):
+        entries = wt.get(key)
+        if not entries:
+            continue
+        r = np.clip(ridx[:, :, lx], 0, len(entries) - 1)
+        for c in range(3):
+            wl = np.array([e[0] if c == 0 else e[2][c - 1]
+                           for e in entries], np.int32)
+            ol = np.array([e[1] if c == 0 else e[3][c - 1]
+                           for e in entries], np.int32)
+            wg[lx, c] = wl[r]
+            og[lx, c] = ol[r]
+    return dict(wg=wg, og=og, denoms=(wt["luma_log2_denom"],
+                                      wt["chroma_log2_denom"]))
+
+
+def _slice_plane(flat, c: int, H: int, W: int, Hc: int, Wc: int):
+    """Plane c of a decoded picture's device-resident flat output
+    (uint8 / uint16 concat of Y, Cb, Cr) as an int32 [h, w] tensor: the
+    device-resident DPB's read path (no host round trip). The conversion
+    comes first: uint16 tensors support little else."""
+    if c == 0:
+        return flat[:H * W].to(torch.int32).reshape(H, W)
+    off = H * W + (c - 1) * Hc * Wc
+    return flat[off:off + Hc * Wc].to(torch.int32).reshape(Hc, Wc)
+
+
+def _prefill_from_acc(acc_l, acc_c, pf4, mv, slot, hfs, wt, *, H, W, Hc,
+                      Wc, hl, wl, hc, wc, bd, hs, vs, denoms, pairs,
+                      stage=contextlib.nullcontext):
+    """Two-stage MC + (weighted) uni/bi combine + residual add over
+    already assembled residual maps; returns the padded prefill buffers
+    (luma [hl, wl], chroma [2, hc, wc]) int32, intra pixels 0.
+    `stage(name)` is entered around "mc_stage2" and "combine"."""
+    put_fn = mc_put_pairs_core if pairs else mc_put_core
+    luma = torch.zeros((hl, wl), dtype=torch.int32, device=pf4.device)
+    chroma = torch.zeros((2, hc, wc), dtype=torch.int32, device=pf4.device)
+    for c in range(3):
+        is_luma = c == 0
+        ph, pw = (H, W) if is_luma else (Hc, Wc)
+        reph = 4 if is_luma else 4 >> hs
+        repv = 4 if is_luma else 4 >> vs
+        with stage("mc_stage2"):
+            puts = [put_fn(hfs[c], mv[:, :, lx], slot[lx], bit_depth=bd,
+                           is_luma=is_luma, hs=hs, vs=vs, H=ph, W=pw)
+                    for lx in range(2)]
+        with stage("combine"):
+            def up(a):
+                return a.to(torch.int32).repeat_interleave(repv, 0) \
+                    .repeat_interleave(reph, 1)[:ph, :pw]
+
+            if acc_l is None:
+                res = torch.zeros((ph, pw), dtype=torch.int32,
+                                  device=pf4.device)
+            else:
+                res = acc_l if is_luma else acc_c[c - 1]
+            if wt is not None:
+                wg, og = wt
+                out = combine_plane_w(
+                    puts[0], puts[1], up(pf4), res, up(wg[0, c]),
+                    up(og[0, c]), up(wg[1, c]), up(og[1, c]), bit_depth=bd,
+                    denom=denoms[0 if is_luma else 1])
+            else:
+                out = combine_plane(puts[0], puts[1], up(pf4), res,
+                                    bit_depth=bd)
+            dst = luma if is_luma else chroma[c - 1]
+            dst[OY:OY + ph, OX:OX + pw] = out
+    return luma, chroma
+
+
+def _inter_prefill(acc_l, acc_c, midx, mvals, hf0, hf1, hf2, wt=None, *,
+                   H, W, Hc, Wc, hl, wl, hc, wc, bd, hs, vs, h4, w4,
+                   denoms=None, pairs=False,
+                   stage=contextlib.nullcontext):
+    """Inter-prediction prefill of one picture, all on the device: the
+    dense motion grids rebuilt from the sparse PU-corner deltas
+    (`motion_diff2`), two-stage MC from the stage-1 planes hf0 / hf1 /
+    hf2 of the device-resident references ([R, ...], one per plane),
+    uni / bi (weighted) combine and residual add. Returns (luma [hl, wl],
+    chroma [2, hc, wc]) int32 padded buffers to hand to the fused intra
+    kernel as its starting planes: intra pixels are 0. acc_l / acc_c are
+    the picture's residual maps (`_residual_acc`, which the engine
+    computes once for this and for the intra kernel; the JAX package's
+    function of this name rebuilds them from the arenas)."""
+    pf4, mv, slot = _motion_grids_dev(midx, mvals, h4, w4)
+    return _prefill_from_acc(acc_l, acc_c, pf4, mv, slot, (hf0, hf1, hf2),
+                             wt, H=H, W=W, Hc=Hc, Wc=Wc, hl=hl, wl=wl,
+                             hc=hc, wc=wc, bd=bd, hs=hs, vs=vs,
+                             denoms=denoms, pairs=pairs, stage=stage)
+
+
 def _upload(arrays, device) -> list[torch.Tensor]:
     """ONE host->device copy for a list of numpy arrays: they are packed
     into one byte buffer (16-byte aligned segments) and viewed back as
@@ -171,31 +342,32 @@ def check_slice(fs: FrameSymbols):
         why = (f"bit depth {sps.bit_depth}/{sps.bit_depth_chroma} (above "
                f"10, or unequal luma / chroma): ROADMAP.md Queue 1 item 7 "
                f"(RExt)")
-    elif fs.inter_pbs:
-        why = "inter prediction: ROADMAP.md Queue 1 item 5 (ra_main)"
-    elif not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma:
-        why = "in-loop filters: ROADMAP.md Queue 1 item 4"
     elif getattr(pps, "cross_component_prediction_enabled", 0):
         why = "cross-component prediction: ROADMAP.md Queue 1 item 7"
     elif fs.native_pack is None:
         why = ("pictures without a native pack (scaling lists or the "
                "Python parser): ROADMAP.md Queue 1 item 7")
+    elif fs.inter_pbs and fs.pcm_blocks:
+        why = ("an inter picture with PCM blocks: ROADMAP.md Queue 1 "
+               "item 9 (packed fallback path)")
     if why:
         raise NotImplementedError(f"POC {fs.poc}: {why}")
 
 
 class TorchPlanes:
     """A decoded picture whose flat output (uint8, or uint16 above 8
-    bits: `crop_pack`) stays on the device (the DPB entry); `get()`
+    bits: `crop_pack`) stays on the device (the DPB entry, which later
+    pictures predict from: `TorchEngine._ref_plane_dev`); `get()`
     fetches it to the host once and splits it into [Y, Cb, Cr] arrays of
-    that dtype. Quacks like the [Y, Cb, Cr] list the decoder expects."""
+    that dtype. Quacks like the [Y, Cb, Cr] list the decoder expects.
+    device_filtered: the in-loop filters ran on the device."""
 
-    device_filtered = False
-
-    def __init__(self, flat: torch.Tensor, H, W, Hc, Wc):
+    def __init__(self, flat: torch.Tensor, H, W, Hc, Wc,
+                 device_filtered=False):
         self._dev = flat
         self._dims = (H, W, Hc, Wc)
         self._mat = None
+        self.device_filtered = device_filtered
 
     def get(self):
         if self._mat is None:
@@ -216,6 +388,102 @@ class TorchPlanes:
         return 3
 
 
+class Stage1Cache:
+    """Stage-1 MC planes of reference pictures in one mode (tap or
+    pair). The planes of every cached picture lie side by side:
+    `bufs[c]` is ONE tensor [S, *stage1_shape] per plane c, and a
+    picture owns the same slot in all three, so stage 2 gathers by
+    (slot, ...) and nothing is stacked per predicted picture. A
+    reference is filtered once, however many pictures read it.
+
+    Entries are keyed by the reference's planes object: weakly where the
+    object allows it (a reused id is caught by the identity test), else
+    by a strong reference that the entry's eviction drops. Slots are
+    freed, in this order, when their object has died, when it is no
+    longer among the pictures the decoder still holds as references
+    (`live`), and least recently used first once `max_slots` is reached:
+    at least the slots this picture needs, and as many more as the byte
+    budget allows, at most MAX_REFS."""
+
+    MAX_REFS = 17          # a full DPB (16 pictures) and one more
+
+    def __init__(self, pairs: bool, budget: int):
+        self.pairs = pairs
+        self.budget = budget
+        self.sig = None
+        self.bufs = None
+        self.entries = OrderedDict()     # id(obj) -> (ref() -> obj, slot)
+        self.hits = self.misses = 0
+
+    def nbytes(self):
+        return sum(b.numel() * b.element_size() for b in self.bufs or ())
+
+    def _shapes(self, dims):
+        H, W, Hc, Wc = dims
+        return (stage1_shape(H, W, True, self.pairs),
+                stage1_shape(Hc, Wc, False, self.pairs),
+                stage1_shape(Hc, Wc, False, self.pairs))
+
+    def _take_slot(self, wanted, live, max_slots, shapes, device):
+        used = {slot for _ref, slot in self.entries.values()}
+        n = 0 if self.bufs is None else self.bufs[0].shape[0]
+        for slot in range(n):
+            if slot not in used:
+                return slot
+        drop = [k for k, (ref, _s) in self.entries.items()
+                if ref() is None or k not in live]
+        if not drop and n >= max_slots:
+            drop = [k for k in self.entries if k not in wanted]
+        if drop:
+            return self.entries.pop(drop[0])[1]
+        grown = [torch.empty((n + 1,) + sh, dtype=torch.int16, device=device)
+                 for sh in shapes]
+        if n:
+            for g, b in zip(grown, self.bufs):
+                g[:n] = b
+        self.bufs = grown
+        return n
+
+    def slots(self, objs, dims, bd, plane_of, live, device):
+        """Slots of the reference objects `objs` (their stage-1 planes
+        computed now where missing, from `plane_of(obj, c)` -> int32
+        plane on the device). Returns (bufs, [slot per object])."""
+        sig = (dims, bd, torch.device(device))
+        if sig != self.sig:
+            self.sig, self.bufs = sig, None
+            self.entries.clear()
+        shapes = self._shapes(dims)
+        per_ref = 2 * sum(int(np.prod(sh)) for sh in shapes)
+        wanted = {id(o) for o in objs}
+        max_slots = max(len(wanted),
+                        min(self.MAX_REFS, self.budget // per_ref))
+        fn = mc_prefilter_pairs if self.pairs else mc_hprefilter
+        out = []
+        for o in objs:
+            key = id(o)
+            hit = self.entries.get(key)
+            if hit is not None and hit[0]() is o:
+                self.entries.move_to_end(key)
+                self.hits += 1
+                out.append(hit[1])
+                continue
+            if hit is not None:              # a dead object's id, reused
+                slot = self.entries.pop(key)[1]
+            else:
+                slot = self._take_slot(wanted, live, max_slots, shapes,
+                                       device)
+            for c in range(3):
+                fn(plane_of(o, c), bd, c == 0, out=self.bufs[c][slot])
+            try:
+                ref = weakref.ref(o)
+            except TypeError:                # a plain list of host planes
+                ref = (lambda o=o: o)
+            self.entries[key] = (ref, slot)
+            self.misses += 1
+            out.append(slot)
+        return self.bufs, out
+
+
 class TorchEngine:
     """Reconstructs parsed pictures on one torch device."""
 
@@ -223,9 +491,43 @@ class TorchEngine:
     # frames whose padded int32 recon + residual planes exceed it take
     # the banded kernel, as they take `_build_banded` there.
     FUSED_VMEM_BUDGET = 12 * 2 ** 20
+    # The JAX package's rule for the MC mode (pipeline.py
+    # MC_PAIRS_MAX_PIXELS), kept as the default: pictures up to this many
+    # luma samples (4K included) take the all-phase-pair stage 1 and the
+    # one-gather stage 2, larger ones the tap mode. Both modes give the
+    # same samples; chip_smoke.py times both (PERF.md).
+    MC_PAIRS_MAX_PIXELS = 8_500_000
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", sync_timers=False):
+        """sync_timers: synchronise around every stage and add up its
+        wall time in `stage_ms` (diagnosis only: it serialises host and
+        device)."""
         self.device = torch.device(device)
+        self.sync_timers = sync_timers
+        self.stage_ms = {}
+        # byte budget of the stage-1 cache: a quarter of the card's memory
+        # (1 GiB on the CPU)
+        budget = 2 ** 30 if self.device.type != "cuda" else \
+            torch.cuda.get_device_properties(self.device).total_memory // 4
+        self._stage1 = {pairs: Stage1Cache(pairs, budget)
+                        for pairs in (False, True)}
+
+    @contextlib.contextmanager
+    def _stage(self, name):
+        if not self.sync_timers:
+            yield
+            return
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            self.stage_ms[name] = self.stage_ms.get(name, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
 
     def fused_plan(self, fs: FrameSymbols):
         """("whole", (hl, wl, hc, wc)) when the padded planes fit the
@@ -246,28 +548,111 @@ class TorchEngine:
         band_h, nb, hl, wl, hc, wc = plan
         return ("banded", (hl, wl, hc, wc), band_h, nb)
 
+    # ---- inter prediction: references and motion -------------------------
+
+    def _ref_plane_dev(self, planes_obj, c):
+        """Plane c of a reference picture as an int32 tensor on this
+        engine's device. A decoded picture (`TorchPlanes`) is sliced from
+        its flat output where it lies; a host-only picture (the mid-grey
+        concealment frame of a missing reference) is uploaded, once per
+        stay in the stage-1 cache."""
+        flat = getattr(planes_obj, "_dev", None)
+        if flat is not None:
+            return _slice_plane(flat, c, *planes_obj._dims) \
+                .to(self.device)
+        src = np.ascontiguousarray(planes_obj[c], np.int32)
+        return torch.from_numpy(src).to(self.device)
+
+    def _hf_stack(self, pocs, ref_planes, dims, bd, pairs):
+        """Stage-1 planes of the listed reference pictures: (bufs, slots)
+        with bufs[c] [S, P, Hp, wn] (tap mode) or [S, Py, Px, hn, wn]
+        (pair mode) for plane c and slots[i] the slot of pocs[i] in all
+        three (`Stage1Cache`)."""
+        live = {id(o) for o in ref_planes.values()}
+        with self._stage("mc_stage1"):
+            return self._stage1[pairs].slots(
+                [ref_planes[p] for p in pocs], dims, bd,
+                self._ref_plane_dev, live, self.device)
+
+    def pairs_mode(self, fs: FrameSymbols) -> bool:
+        """Whether this picture's MC takes the all-phase-pair mode."""
+        return fs.sps.height * fs.sps.width <= self.MC_PAIRS_MAX_PIXELS
+
+    def _pack_inter(self, fs: FrameSymbols, ref_planes, dims):
+        """The picture's motion for the device MC: the stage-1 planes of
+        its references (`hf`), the sparse deltas of the per-4x4 grids
+        pred_flag / reference slot / MV (`md`), the weight grids (`wt`,
+        None without a weight table). None when no reference picture of
+        its lists is at hand."""
+        mc = fs.motion
+        pocs = sorted({p for p in set(fs.ref_poc_l0) | set(fs.ref_poc_l1)
+                       if p in ref_planes})
+        if not pocs:
+            return None
+        pairs = self.pairs_mode(fs)
+        hf, slots = self._hf_stack(pocs, ref_planes, dims, fs.sps.bit_depth,
+                                   pairs)
+        h4, w4 = mc.pred_flag.shape
+        # poc -> cache slot via one searchsorted per list (pocs sorted);
+        # a poc whose picture is not at hand maps to the first one's
+        keys, slot_of = np.asarray(pocs), np.asarray(slots)
+        slot = np.zeros((2, h4, w4), np.uint8)
+        for lx in range(2):
+            pocg = np.asarray(mc.refpoc[:, :, lx])
+            idx = np.clip(np.searchsorted(keys, pocg), 0, len(keys) - 1)
+            slot[lx] = np.where(keys[idx] == pocg, slot_of[idx], slot_of[0])
+        # qpel MVs are spec-bounded to +-2^15: exact in int16
+        md = motion_diff2(np.asarray(mc.pred_flag, np.uint8), slot,
+                          np.asarray(mc.mv, np.int16))
+        return dict(hf=hf, pairs=pairs, md=md, wt=weight_grids(fs))
+
+    # ---- one picture ---------------------------------------------------------
+
     def reconstruct(self, fs: FrameSymbols, ref_planes=None) -> TorchPlanes:
         """Reconstruct one parsed picture; the output stays on the
-        device and nothing is read back from it. ref_planes is unused
-        until inter prediction is ported."""
-        k = self.prepare(fs)
+        device and nothing is read back from it. ref_planes: {poc:
+        planes} of the pictures the decoder holds as references (decoded
+        pictures as `TorchPlanes`, read on the device; host-only
+        concealment frames as [Y, Cb, Cr] arrays)."""
+        k = self.prepare(fs, ref_planes)
         tail = (k["luma"], k["chroma"], k["res_l"], k["res_c"], k["bd"],
                 k["order"], k["level_bounds"])
-        if k["bounds"] is None:
-            intra_fused(k["meta"], k["n"], *tail)
+        with self._stage("kernel"):
+            if k["bounds"] is None:
+                intra_fused(k["meta"], k["n"], *tail)
+            else:
+                intra_fused_banded(k["meta"], k["bounds"], k["n"], *tail)
+        # in-loop filters on the un-padded views where the picture wants
+        # them; crop; downcast
+        H, W, Hc, Wc = k["dims"]
+        bd, f = k["bd"], k["filters"]
+        if f is None:
+            with self._stage("crop_pack"):
+                flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, bd)
         else:
-            intra_fused_banded(k["meta"], k["bounds"], k["n"], *tail)
-        return TorchPlanes(crop_pack(k["luma"], k["chroma"], *k["dims"],
-                                     k["bd"]), *k["dims"])
+            y, cb, cr = apply_filters_device(
+                k["luma"][OY:OY + H, OX:OX + W],
+                k["chroma"][0, OY:OY + Hc, OX:OX + Wc],
+                k["chroma"][1, OY:OY + Hc, OX:OX + Wc], *f["fargs"],
+                bd=bd, bdc=bd, cs=f["cs"], do_deblock=f["do_deblock"],
+                do_sao=f["do_sao"], hs=1, vs=1, stage=self._stage)
+            with self._stage("crop_pack"):
+                dt = torch.uint8 if bd <= 8 else torch.uint16
+                flat = torch.cat([y.reshape(-1), cb.reshape(-1),
+                                  cr.reshape(-1)]).to(dt)
+        return TorchPlanes(flat, H, W, Hc, Wc, device_filtered=f is not None)
 
-    def prepare(self, fs: FrameSymbols) -> dict:
+    def prepare(self, fs: FrameSymbols, ref_planes=None) -> dict:
         """Steps 1-5 up to the intra kernel: the kernel's arguments
         (meta, n, luma, chroma, res_l, res_c, bd, order, level_bounds,
         and bounds, None for the whole-frame kernel) plus the frame dims
-        (H, W, Hc, Wc), all on this engine's device. For a banded plan
-        the meta is band sorted (its bounds checked here, on the host)
-        and the planes have `band_plan`'s dims. The level schedule is
-        made on the device from the uploaded level row."""
+        (H, W, Hc, Wc) and `filters` (None, or the in-loop filters'
+        device tensors and flags), all on this engine's
+        device. For a banded plan the meta is band sorted (its bounds
+        checked here, on the host) and the planes have `band_plan`'s
+        dims. The level schedule is made on the device from the uploaded
+        level row. On an inter picture luma / chroma hold the inter
+        prediction + residual (intra pixels 0)."""
         check_slice(fs)
         sps = fs.sps
         H, W = sps.height, sps.width
@@ -278,26 +663,70 @@ class TorchEngine:
         hl, wl, hc, wc = plan[1]
         npk = fs.native_pack
         n = npk["n"]
-        host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
-        if plan[0] == "banded":
-            host[3], bounds = sort_meta_by_band(npk["meta6"], n, plan[2],
-                                                vs, plan[3])
-            check_rising(bounds, n, "bounds")
-            host.append(bounds)
-        arena4, arena16, escs, meta6, *rest = _upload(host, self.device)
-        bounds = rest[0] if rest else None
-        order, level_bounds = level_schedule(meta6[5], n,
-                                             fs.native_raw["n_levels"])
-        acc_l, acc_c = _residual_acc(arena4, arena16, escs, caps=npk["caps"],
-                                     H=H, W=W, Hc=Hc, Wc=Wc, bd=bd)
-        res_l = torch.zeros((hl, wl), dtype=torch.int32, device=self.device)
-        res_c = torch.zeros((2, hc, wc), dtype=torch.int32,
-                            device=self.device)
-        if acc_l is not None:
-            res_l[OY:OY + H, OX:OX + W] = acc_l
-            res_c[:, OY:OY + Hc, OX:OX + Wc] = acc_c
 
-        if fs.pcm_blocks:
+        # ---- host side: everything that rides in the one upload ----------
+        with self._stage("host_pack"):
+            host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
+            at = {}
+            if plan[0] == "banded":
+                host[3], bounds = sort_meta_by_band(npk["meta6"], n, plan[2],
+                                                    vs, plan[3])
+                check_rising(bounds, n, "bounds")
+                at["bounds"] = len(host)
+                host.append(bounds)
+            pff = None
+            if not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma:
+                pff = prep_filters(fs) if device_filters_ok(fs) else None
+                if pff is None:
+                    raise NotImplementedError(
+                        f"POC {fs.poc}: in-loop filters whose CTB-16 chroma "
+                        f"halo pattern is outside the whole-frame model: "
+                        f"ROADMAP.md Queue 1 item 12 (host-scheduled filter "
+                        f"fallback)")
+            if pff is not None:
+                at["fargs"] = len(host)
+                host.extend(fargs_arrays(pff))
+        inter = None
+        if fs.inter_pbs:
+            inter = self._pack_inter(fs, ref_planes or {}, (H, W, Hc, Wc))
+            if inter is None:
+                raise NotImplementedError(
+                    f"POC {fs.poc}: an inter picture with no usable "
+                    f"reference: ROADMAP.md Queue 1 item 9 (packed fallback "
+                    f"path)")
+            at["md"] = len(host)
+            host += [inter["md"]["idx"], inter["md"]["vals"]]
+            if inter["wt"] is not None:
+                at["wt"] = len(host)
+                host += [inter["wt"]["wg"], inter["wt"]["og"]]
+        with self._stage("upload"):
+            dev = _upload(host, self.device)
+        arena4, arena16, escs, meta6 = dev[:4]
+        bounds = dev[at["bounds"]] if "bounds" in at else None
+
+        with self._stage("residual"):
+            acc_l, acc_c = _residual_acc(arena4, arena16, escs,
+                                         caps=npk["caps"], H=H, W=W, Hc=Hc,
+                                         Wc=Wc, bd=bd)
+            res_l = torch.zeros((hl, wl), dtype=torch.int32,
+                                device=self.device)
+            res_c = torch.zeros((2, hc, wc), dtype=torch.int32,
+                                device=self.device)
+            if acc_l is not None:
+                res_l[OY:OY + H, OX:OX + W] = acc_l
+                res_c[:, OY:OY + Hc, OX:OX + Wc] = acc_c
+
+        # ---- starting planes (inter prediction, PCM samples, or zeros) ---
+        if inter is not None:
+            md, wt = inter["md"], inter["wt"]
+            luma, chroma = _inter_prefill(
+                acc_l, acc_c, dev[at["md"]], dev[at["md"] + 1], *inter["hf"],
+                wt=(dev[at["wt"]], dev[at["wt"] + 1]) if wt else None,
+                H=H, W=W, Hc=Hc, Wc=Wc, hl=hl, wl=wl, hc=hc, wc=wc, bd=bd,
+                hs=hs, vs=vs, h4=md["h4"], w4=md["w4"],
+                denoms=tuple(wt["denoms"]) if wt else None,
+                pairs=inter["pairs"], stage=self._stage)
+        elif fs.pcm_blocks:
             p0 = np.zeros((hl, wl), np.int32)
             c0 = np.zeros((2, hc, wc), np.int32)
             for p in fs.pcm_blocks:
@@ -314,9 +743,20 @@ class TorchEngine:
             chroma = torch.zeros((2, hc, wc), dtype=torch.int32,
                                  device=self.device)
 
-        meta16 = derive_meta16(
-            meta6[:5], sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
-            c444=False, strong=bool(sps.strong_intra_smoothing))
+        with self._stage("meta_schedule"):
+            order, level_bounds = level_schedule(meta6[5], n,
+                                                 fs.native_raw["n_levels"])
+            meta16 = derive_meta16(
+                meta6[:5],
+                sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
+                c444=False, strong=bool(sps.strong_intra_smoothing))
+        filters = None
+        if pff is not None:
+            i = at["fargs"]
+            filters = dict(fargs=dev[i:i + len(fargs_arrays(pff))],
+                           do_deblock=pff["do_deblock"],
+                           do_sao=pff["do_sao"], cs=1 << sps.log2_ctb)
         return dict(meta=meta16, n=n, bounds=bounds, order=order,
                     level_bounds=level_bounds, luma=luma, chroma=chroma,
-                    res_l=res_l, res_c=res_c, bd=bd, dims=(H, W, Hc, Wc))
+                    res_l=res_l, res_c=res_c, bd=bd, dims=(H, W, Hc, Wc),
+                    filters=filters)

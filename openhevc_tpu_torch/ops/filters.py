@@ -1,0 +1,695 @@
+"""In-loop filters on the device: whole-frame deblocking + SAO as dense
+stencils (`roll` / `reshape` / `where`) in torch.
+
+Counterpart of the JAX package's ops/filters_jax.py (plain XLA there,
+plain torch ops here: no hand kernel, see PERF.md for their times;
+scalar truth in the JAX package: ops/deblock_np.py, ops/sao_np.py,
+ops/filters_sched.py).
+
+Design: the host derives all per-edge control data (boundary strengths,
+beta / tc thresholds, no-filter flags, per-CTB SAO parameters) as SMALL
+numpy arrays, which ride in the picture's one upload, and the device
+applies the sample stencils over the whole frame. Vertical-edge windows
+tile a row exactly (edges are 8 apart, each window spans +-4), so a pass
+is one reshape + elementwise math; the horizontal passes run on the
+transposed plane.
+
+The whole-frame formulation reproduces the reference decoder's staggered
+CTB schedule, including PCM / transquant-bypass no-filter blocks (write
+suppression per edge + restore after SAO, of which the chroma restore
+covers only the top-left quadrant of a CTB, as the reference does) and
+the 16x16-CTB SAO chroma halo (`_chroma_stale_reads`). Where a halo
+pattern falls outside that model `prep_filters` returns None; the caller
+must then not use these filters (TorchEngine raises). Bit-exact with the
+JAX package's module (integers; tolerance none).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from ..bitstream.syntax import chroma_qp
+from .tables import BETA_TABLE, TC_TABLE
+
+
+# =========================================================================
+# Host side: vectorized boundary strengths + per-edge parameters
+# =========================================================================
+
+def _mv_bs_vec(mc, psel, qsel):
+    """Vectorized MV-difference rule (_mv_bs of deblock_np.py) over
+    (row-slice, col-slice) selectors p/q of equal extent. Returns int32
+    array (0/1). Selectors are basic slices — the edge grids are
+    regular every-other-column/row patterns, and slicing avoids the
+    fancy-gather copies that cost ~40 ms/frame at 1080p."""
+    PF_BI = 3
+    p_pf = np.asarray(mc.pred_flag[psel], np.int32)
+    q_pf = np.asarray(mc.pred_flag[qsel], np.int32)
+    p_mv = np.asarray(mc.mv[psel], np.int32)      # [..., 2(list), 2(xy)]
+    q_mv = np.asarray(mc.mv[qsel], np.int32)
+    p_poc = mc.refpoc[psel]
+    q_poc = mc.refpoc[qsel]
+    p_ri = mc.ref_idx[psel]
+    q_ri = mc.ref_idx[qsel]
+
+    # near = per-(list-pairing) "both components differ by < 4":
+    # near_s[..., l] pairs list l with list l; near_x pairs them crossed.
+    # Two abs-diff passes replace the five pairwise far() evaluations.
+    near_s = (np.abs(p_mv - q_mv) < 4).all(axis=-1)          # [..., 2]
+    near_x = (np.abs(p_mv[..., ::-1, :] - q_mv) < 4).all(axis=-1)
+    straight = near_s[..., 0] & near_s[..., 1]
+    crossed = near_x[..., 0] & near_x[..., 1]
+
+    same = ((p_pf == q_pf) &
+            (p_mv == q_mv).all(axis=(-2, -1)) &
+            (p_poc == q_poc).all(axis=-1) &
+            (p_ri == q_ri).all(axis=-1))
+
+    # both BI
+    both_bi = (p_pf == PF_BI) & (q_pf == PF_BI)
+    same_all_poc = (q_poc[..., 0] == p_poc[..., 0]) & \
+        (q_poc[..., 0] == q_poc[..., 1]) & (p_poc[..., 0] == p_poc[..., 1])
+    bi_case1 = same_all_poc & (straight | crossed)
+    match_ll = (p_poc[..., 0] == q_poc[..., 0]) & \
+        (p_poc[..., 1] == q_poc[..., 1])
+    bi_case2 = ~same_all_poc & match_ll & straight
+    match_x = (p_poc[..., 1] == q_poc[..., 0]) & \
+        (p_poc[..., 0] == q_poc[..., 1])
+    bi_case3 = ~same_all_poc & ~match_ll & match_x & crossed
+    bi_zero = bi_case1 | bi_case2 | bi_case3
+
+    # both uni: used list = 0 when pf has bit0, else 1; select with
+    # where instead of take_along_axis gathers
+    both_uni = (p_pf != PF_BI) & (q_pf != PF_BI)
+    lq0 = (q_pf & 1) != 0
+    lp0 = (p_pf & 1) != 0
+    q_poc_u = np.where(lq0, q_poc[..., 0], q_poc[..., 1])
+    p_poc_u = np.where(lp0, p_poc[..., 0], p_poc[..., 1])
+    # near for the used-list pairing, via the two precomputed tables
+    # (lp0 True = p uses list 0): both-0 -> near_s[...,0]; both-1 ->
+    # near_s[...,1]; p0 vs q1 -> near_x[...,1]; p1 vs q0 -> near_x[...,0]
+    near_u = np.where(
+        lp0 == lq0,
+        np.where(lp0, near_s[..., 0], near_s[..., 1]),
+        np.where(lp0, near_x[..., 1], near_x[..., 0]))
+    uni_zero = (q_poc_u == p_poc_u) & near_u
+
+    bs = np.ones(p_pf.shape, np.int32)
+    bs[both_bi & bi_zero] = 0
+    bs[both_uni & uni_zero] = 0
+    bs[same] = 0
+    return bs
+
+
+def boundary_strengths_vec(fs):
+    """Vectorized whole-frame BS (parity: boundary_strengths,
+    deblock_np.py / ff_hevc_deblocking_boundary_strengths)."""
+    sps = fs.sps
+    h4, w4 = sps.height >> 2, sps.width >> 2
+    h8, w8 = sps.height >> 3, sps.width >> 3
+    pm = fs.pred_mode[:h4, :w4]
+    cbf = fs.cbf_luma4[:h4, :w4]
+    vbs = np.zeros((h4, w8), np.int32)
+    hbs = np.zeros((h8, w4), np.int32)
+
+    def dir_bs(psel, qsel, tu_edge):
+        intra = (pm[qsel] == 1) | (pm[psel] == 1)
+        anycbf = (cbf[psel] != 0) | (cbf[qsel] != 0)
+        if fs.motion is not None:
+            mv = _mv_bs_vec(fs.motion, psel, qsel)
+        else:
+            mv = np.zeros(intra.shape, np.int32)
+        at_edge = np.where(intra, 2, np.where(anycbf, 1, mv))
+        interior = np.where(intra, 0, mv)
+        return np.where(tu_edge != 0, at_edge, interior)
+
+    if w8 > 1:
+        # p columns 1,3,..,w4-3; q columns 2,4,..,w4-2 (both w8-1 wide)
+        vbs[:, 1:] = dir_bs((slice(0, h4), slice(1, w4 - 2, 2)),
+                            (slice(0, h4), slice(2, w4, 2)),
+                            fs.bounds_v[:h4, 2:w4:2])
+    if h8 > 1:
+        hbs[1:, :] = dir_bs((slice(1, h4 - 2, 2), slice(0, w4)),
+                            (slice(2, h4, 2), slice(0, w4)),
+                            fs.bounds_h[2:h4:2, :w4])
+    return vbs, hbs
+
+
+FARG_KEYS = ("beta_v", "tc_v", "beta_h", "tc_h", "tc_cv1", "tc_ch1",
+             "tc_cv2", "tc_ch2", "sao", "nop_v", "noq_v", "nop_h",
+             "noq_h", "nop_cv", "noq_cv", "nop_ch", "noq_ch", "nf4",
+             "nf4c", "st_b0", "st_b2", "st_a3")
+
+
+def fargs_arrays(pff):
+    """prep_filters dict -> the positional filter tensors of
+    apply_filters_device, (1,1)/(1,1,3,6) placeholders where absent."""
+    z2 = np.zeros((1, 1), np.int16)
+    z4 = np.zeros((1, 1, 3, 6), np.int16)
+    return tuple(pff.get(k, z4 if k == "sao" else z2) for k in FARG_KEYS)
+
+
+def device_filters_ok(fs) -> bool:
+    """Whole-frame device filtering reproduces the reference's staggered
+    schedule including PCM/transquant-bypass no-filter blocks (per-edge
+    write suppression + post-SAO restore, restore_tqb_pixels behavior)
+    and the 16x16-CTB SAO chroma-halo timing (vertical-stage sourcing,
+    sao_np.py docstring). Fully chroma-format-generic
+    (4:2:0/4:2:2/4:4:4, hevc_filter.c:345's 8*h / 8*v edge spacing),
+    including the CTB-16 halo simulation (_chroma_stale_reads); streams
+    whose halo pattern falls outside the modeled +x offsets fall back
+    via prep_filters returning None."""
+    sps = fs.sps
+    return sps.chroma_format_idc in (1, 2, 3)
+
+
+def _no_filter_mask(fs):
+    """Per-4x4 bool map of blocks whose samples the filters must leave
+    alone (PCM with pcm_loop_filter_disabled, cu_transquant_bypass), or
+    None when the stream can have none."""
+    sps, pps = fs.sps, fs.pps
+    pcmf = (sps.pcm_enabled and sps.pcm_loop_filter_disabled) or \
+        pps.transquant_bypass_enabled
+    if not pcmf:
+        return None
+    return (fs.is_pcm.astype(bool) &
+            bool(sps.pcm_enabled and sps.pcm_loop_filter_disabled)) | \
+        fs.tqb.astype(bool)
+
+
+def _nofilter_grids(fs, nf, H, W):
+    """Per-edge-segment write-suppression flags for the device deblock
+    (granularity mirror of filters_sched._deblock_ctb's get_nf calls)
+    plus the per-4x4 restore mask. nf: [h4, w4] bool.
+    Chroma-format-generic: chroma edges sit every 8 chroma samples;
+    the luma-grid sampling positions scale by the hs/vs shifts."""
+    sps = fs.sps
+    hs, vs = sps.hshift1, sps.vshift1
+    h4, w4, h8, w8 = H >> 2, W >> 2, H >> 3, W >> 3
+    Hc, Wc = H >> vs, W >> hs
+    hc4, wc8 = Hc >> 2, (Wc + 7) >> 3
+    hc8, wc4 = (Hc + 7) >> 3, Wc >> 2
+    g = {}
+    nop_v = np.zeros((h4, w8), np.int16)
+    noq_v = np.zeros((h4, w8), np.int16)
+    if w8 > 1:
+        nop_v[:, 1:] = nf[:h4, 1:2 * w8 - 1:2]
+        noq_v[:, 1:] = nf[:h4, 2:2 * w8:2]
+    nop_h = np.zeros((h8, w4), np.int16)
+    noq_h = np.zeros((h8, w4), np.int16)
+    if h8 > 1:
+        nop_h[1:] = nf[1:2 * h8 - 1:2, :w4]
+        noq_h[1:] = nf[2:2 * h8:2, :w4]
+    nop_cv = np.zeros((hc4, wc8), np.int16)
+    noq_cv = np.zeros((hc4, wc8), np.int16)
+    if wc8 > 1:
+        cy4, cx8 = np.mgrid[0:hc4, 1:wc8]
+        nop_cv[:, 1:] = nf[cy4 << vs, (cx8 << hs) * 2 - 1]
+        noq_cv[:, 1:] = nf[cy4 << vs, (cx8 << hs) * 2]
+    nop_ch = np.zeros((hc8, wc4), np.int16)
+    noq_ch = np.zeros((hc8, wc4), np.int16)
+    if hc8 > 1:
+        cy8, cx4 = np.mgrid[1:hc8, 0:wc4]
+        nop_ch[1:] = nf[(cy8 << vs) * 2 - 1, cx4 << hs]
+        noq_ch[1:] = nf[(cy8 << vs) * 2, cx4 << hs]
+    nf4 = nf[:h4, :w4].astype(np.int16)
+    # chroma restore covers only the top-left (ctb>>hs, ctb>>vs)
+    # plane-unit region of each CTB: the reference passes plane-unit
+    # width/height with LUMA x/y into restore_tqb_pixels
+    # (hevc_filter.c:163) — reproduced faithfully
+    # (see filters_sched._restore_ctb)
+    ctb = 1 << sps.log2_ctb
+    xl = np.arange(w4) * 4
+    yl = np.arange(h4) * 4
+    cx0 = (xl // ctb) * ctb
+    cy0 = (yl // ctb) * ctb
+    qw = np.minimum(ctb >> hs, Wc - (cx0 >> hs))
+    qh = np.minimum(ctb >> vs, Hc - (cy0 >> vs))
+    quad = ((yl - cy0 < qh)[:, None] & (xl - cx0 < qw)[None, :])
+    g.update(nop_v=nop_v, noq_v=noq_v, nop_h=nop_h, noq_h=noq_h,
+             nop_cv=nop_cv, noq_cv=noq_cv, nop_ch=nop_ch, noq_ch=noq_ch,
+             nf4=nf4, nf4c=(nf4 & quad).astype(np.int16))
+    return g
+
+
+def _chroma_stale_reads(fs):
+    """Exact schedule simulation of the reference's staggered filter
+    pipeline (ops/filters_sched.py truth; ff_hevc_hls_filter +
+    deblocking_filter_CTB's chroma x_end -= 8*h deferral): for every
+    chroma position, the step at which its horizontal deblock lands,
+    and for every CTB, the step at which its SAO runs. A neighbor read
+    is stale (must source the vertical-stage plane) iff the target's
+    h-deblock lands strictly after the reader CTB's SAO step.
+
+    Returns center-space masks {(dx, dy): [Hc, Wc] int16} for the three
+    +x neighbor offsets of the SAO edge classes (eo0 b=(1,0),
+    eo2 b=(1,1), eo3 a=(1,-1)), or None when a non-+x offset would be
+    stale (never observed; caller then falls back to host filters)."""
+    sps = fs.sps
+    ctb = 1 << sps.log2_ctb
+    W, H = sps.width, sps.height
+    hs, vs = sps.hshift1, sps.vshift1
+    ch, cv = 1 << hs, 1 << vs
+    Hc, Wc = H >> vs, W >> hs
+    h_time = np.full((Hc, Wc), -1, np.int64)
+    sao_t = np.full((sps.ctbs_h, sps.ctbs_w), 1 << 60, np.int64)
+    step = 0
+
+    def deblock_times(x0, y0, t):
+        # mirror of filters_sched's horizontal-chroma loop geometry:
+        # edges every 8 chroma samples (8*ch / 8*cv luma), last 8*ch
+        # luma columns deferred unless at the picture edge
+        x_end = min(x0 + ctb, W)
+        y_end = min(y0 + ctb, H)
+        x_end2 = x_end
+        if x_end2 != W:
+            x_end = x_end2 - 8 * ch
+        for y in range(y0 if y0 else 8 * cv, y_end, 8 * cv):
+            for x in range(x0 - 8 * ch if x0 else 0, x_end, 8 * ch):
+                for sub in (0, 4 * ch):
+                    xx = x + sub
+                    if xx >= W:
+                        continue
+                    cy, cx = y >> vs, xx >> hs
+                    h_time[cy - 1, cx:cx + 4] = t
+                    if cy < Hc:
+                        h_time[cy, cx:cx + 4] = t
+
+    def hls_filter(x, y, t):
+        deblock_times(x, y, t)
+        x_end = x >= W - ctb
+        y_end = y >= H - ctb
+        for (sx, sy, cond) in (((x - ctb), (y - ctb), y and x),
+                               ((x - ctb), y, x and y_end),
+                               (x, (y - ctb), y and x_end),
+                               (x, y, x_end and y_end)):
+            if cond:
+                sao_t[sy >> sps.log2_ctb, sx >> sps.log2_ctb] = \
+                    min(sao_t[sy >> sps.log2_ctb, sx >> sps.log2_ctb], t)
+
+    if fs.ctb_order is not None:
+        order = list(fs.ctb_order)
+    else:
+        order = [(rx * ctb, ry * ctb) for ry in range(sps.ctbs_h)
+                 for rx in range(sps.ctbs_w)]
+    calls = []
+    for (x, y) in order:
+        x_end = x >= W - ctb
+        y_end = y >= H - ctb
+        if y and x:
+            calls.append((x - ctb, y - ctb))
+        if y and x_end:
+            calls.append((x, y - ctb))
+        if x and y_end:
+            calls.append((x - ctb, y))
+    calls.append(order[-1])
+    for t, (x, y) in enumerate(calls):
+        hls_filter(x, y, t)
+
+    yy, xx = np.mgrid[0:Hc, 0:Wc]
+    ry = np.minimum((yy << vs) // ctb, sps.ctbs_h - 1)
+    rx = np.minimum((xx << hs) // ctb, sps.ctbs_w - 1)
+    reader_t = sao_t[ry, rx]
+    masks = {}
+    any_bad = False
+    for (dx, dy) in ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1),
+                     (1, 1), (1, -1), (-1, 1)):
+        ty = np.clip(yy + dy, 0, Hc - 1)
+        tx = np.clip(xx + dx, 0, Wc - 1)
+        inb = ((yy + dy >= 0) & (yy + dy < Hc) &
+               (xx + dx >= 0) & (xx + dx < Wc))
+        m = inb & (h_time[ty, tx] > reader_t)
+        if dx == 1:
+            masks[(dx, dy)] = m.astype(np.int16)
+        elif m.any():
+            any_bad = True
+    return None if any_bad else masks
+
+
+def prep_filters(fs):
+    """All control tensors for one frame's device filtering; None when
+    nothing to do. Shapes are tiny (per 4-sample edge / per CTB)."""
+    sps = fs.sps
+    do_deblock = not fs.deblock_disabled
+    do_sao = bool(sps.sao_enabled and (fs.sao_luma or fs.sao_chroma))
+    if not do_deblock and not do_sao:
+        return None
+    H, W = sps.height, sps.width
+    h4, w4, h8, w8 = H >> 2, W >> 2, H >> 3, W >> 3
+    bd, bdc = sps.bit_depth, sps.bit_depth_chroma
+    out = {"do_deblock": do_deblock, "do_sao": do_sao}
+    nf = _no_filter_mask(fs)
+    if nf is not None:
+        out.update(_nofilter_grids(fs, nf, H, W))
+    if do_sao and do_deblock and sps.log2_ctb == 4:
+        masks = _chroma_stale_reads(fs)
+        if masks is None:
+            return None          # caller falls back to host filters
+        out["st_b0"] = masks[(1, 0)]
+        out["st_b2"] = masks[(1, 1)]
+        out["st_a3"] = masks[(1, -1)]
+    if do_deblock:
+        vbs, hbs = boundary_strengths_vec(fs)
+        qp4 = fs.qp_y4[:h4, :w4].astype(np.int32)
+        bo, to = fs.beta_offset, fs.tc_offset
+
+        def luma_params(bs, qp_p, qp_q):
+            qp = (qp_p + qp_q + 1) >> 1
+            beta = BETA_TABLE[np.clip(qp + bo, 0, 51)] << (bd - 8)
+            tc = TC_TABLE[np.clip(qp + 2 * (bs - 1) + to, 0, 53)] << (bd - 8)
+            act = bs > 0
+            return (np.where(act, beta, 0).astype(np.int16),
+                    np.where(act, tc, 0).astype(np.int16))
+
+        beta_v = np.zeros((h4, w8), np.int16)
+        tc_v = np.zeros((h4, w8), np.int16)
+        if w8 > 1:
+            beta_v[:, 1:], tc_v[:, 1:] = luma_params(
+                vbs[:, 1:], qp4[:, 1:w4 - 1:2], qp4[:, 2::2])
+        beta_h = np.zeros((h8, w4), np.int16)
+        tc_h = np.zeros((h8, w4), np.int16)
+        if h8 > 1:
+            beta_h[1:], tc_h[1:] = luma_params(
+                hbs[1:], qp4[1:h4 - 1:2], qp4[2::2])
+        out.update(beta_v=beta_v, tc_v=tc_v, beta_h=beta_h, tc_h=tc_h)
+
+        # chroma edges: every 8 chroma samples (= 8*h / 8*v luma,
+        # hevc_filter.c:423), bs==2 only; format-generic via hs/vs.
+        # Edge-window counts are CEIL(dim/8): chroma dims need not be
+        # 8-multiples (1080p 4:2:0 Hc=540 has a real edge at row 536)
+        hs, vs = sps.hshift1, sps.vshift1
+        Hc, Wc = H >> vs, W >> hs
+        wc8, hc8 = (Wc + 7) >> 3, (Hc + 7) >> 3
+        hc4, wc4 = Hc >> 2, Wc >> 2
+        for c_idx in (1, 2):
+            off = fs.pps.cb_qp_offset if c_idx == 1 else fs.pps.cr_qp_offset
+            if c_idx == 1:
+                off += getattr(fs, "slice_cb_qp_offset", 0)
+            else:
+                off += getattr(fs, "slice_cr_qp_offset", 0)
+            # per-qp LUT (np.vectorize over chroma_qp ran at python
+            # rate, ~10 ms/frame on 4:4:4); domain covers negative
+            # average QPs (high-bit-depth offsets)
+            qlut = np.array([chroma_qp(q, off, sps.chroma_format_idc, 0)
+                             for q in range(-32, 64)], np.int32)
+            tcv = np.zeros((hc4, wc8), np.int16)
+            if wc8 > 1:
+                # chroma seg (cy4, cx8): luma edge x8=cx8<<hs, y4=cy4<<vs
+                cy4, cx8 = np.mgrid[0:hc4, 1:wc8]
+                bs = vbs[cy4 << vs, cx8 << hs]
+                qp_l = (qp4[cy4 << vs, (cx8 << hs) * 2 - 1] +
+                        qp4[cy4 << vs, (cx8 << hs) * 2] + 1) >> 1
+                qpc = qlut[np.clip(qp_l, -32, 63) + 32]
+                tc = TC_TABLE[np.clip(qpc + 2 + to, 0, 53)] << (bdc - 8)
+                tcv[:, 1:] = np.where(bs == 2, tc, 0)
+            tch = np.zeros((hc8, wc4), np.int16)
+            if hc8 > 1:
+                cy8, cx4 = np.mgrid[1:hc8, 0:wc4]
+                bs = hbs[cy8 << vs, cx4 << hs]
+                qp_l = (qp4[(cy8 << vs) * 2 - 1, cx4 << hs] +
+                        qp4[(cy8 << vs) * 2, cx4 << hs] + 1) >> 1
+                qpc = qlut[np.clip(qp_l, -32, 63) + 32]
+                tc = TC_TABLE[np.clip(qpc + 2 + to, 0, 53)] << (bdc - 8)
+                tch[1:] = np.where(bs == 2, tc, 0)
+            out[f"tc_cv{c_idx}"] = tcv
+            out[f"tc_ch{c_idx}"] = tch
+    if do_sao:
+        # per-CTB params [cH, cW, 3, 6] int16 as-is; luma/chroma gates
+        sao = fs.sao.astype(np.int16).copy()
+        if not fs.sao_luma:
+            sao[:, :, 0, 0] = 0
+        if not fs.sao_chroma:
+            sao[:, :, 1:, 0] = 0
+        out["sao"] = sao
+    return out
+
+
+# =========================================================================
+# Device side
+# =========================================================================
+
+def _shift_params(a):
+    """Edge-window k holds edge x8=k+1: roll params so index k matches
+    (last column wraps to edge 0 == picture edge, always inactive)."""
+    return torch.roll(a.to(torch.int32), -1, 1)
+
+
+def _windows(pl, shift: int, H4: int, W8: int):
+    """[H, 8 * W8] plane -> [H4, W8, line, col] windows of 8 columns
+    starting `shift` columns in (wrapping). `reshape` copies where the
+    rolled plane is not contiguous (the transposed passes)."""
+    return torch.roll(pl, -shift, 1).reshape(H4, 4, W8, 8).permute(0, 2, 1, 3)
+
+
+def _unwindows(w, shift: int, H: int, W: int):
+    return torch.roll(w.permute(0, 2, 1, 3).reshape(H, W), shift, 1)
+
+
+def _deblock_luma_dir(pl, beta_e, tc_e, bd: int, nop_e=None, noq_e=None):
+    """One direction of luma deblocking over the whole plane.
+    pl [H, W] int32, vertical edges at x=8k; beta/tc [H//4, W//8]
+    (0 where inactive). nop/noq: per-segment PCM/tqb write suppression.
+    Bit-exact to the scalar edge filter (8.7.2.5.3-7)."""
+    H, W = pl.shape
+    H4, W8 = H // 4, W // 8
+    w = _windows(pl, 4, H4, W8)
+    beta = _shift_params(beta_e)[:, :, None]        # [H4, W8, 1]
+    tc = _shift_params(tc_e)[:, :, None]
+    l0 = w[:, :, 0, :]
+    l3 = w[:, :, 3, :]
+
+    def dpq(ln):
+        dp = (ln[..., 1] - 2 * ln[..., 2] + ln[..., 3]).abs()
+        dq = (ln[..., 6] - 2 * ln[..., 5] + ln[..., 4]).abs()
+        return dp, dq
+
+    dp0, dq0 = dpq(l0)
+    dp3, dq3 = dpq(l3)
+    d0 = dp0 + dq0
+    d3 = dp3 + dq3
+    b = beta[..., 0]
+    t = tc[..., 0]
+    filt = (t > 0) & (d0 + d3 < b)
+
+    def strong_line(ln, d):
+        return ((2 * d < (b >> 2)) &
+                ((ln[..., 0] - ln[..., 3]).abs() +
+                 (ln[..., 4] - ln[..., 7]).abs() < (b >> 3)) &
+                ((ln[..., 3] - ln[..., 4]).abs() < ((5 * t + 1) >> 1)))
+
+    strong = filt & strong_line(l0, d0) & strong_line(l3, d3)
+
+    p3, p2, p1, p0, q0, q1, q2, q3 = w.unbind(-1)
+    tc2 = 2 * tc
+    # ---- strong filter ----
+    sp0 = torch.clamp((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
+                      p0 - tc2, p0 + tc2)
+    sp1 = torch.clamp((p2 + p1 + p0 + q0 + 2) >> 2, p1 - tc2, p1 + tc2)
+    sp2 = torch.clamp((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3,
+                      p2 - tc2, p2 + tc2)
+    sq0 = torch.clamp((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3,
+                      q0 - tc2, q0 + tc2)
+    sq1 = torch.clamp((p0 + q0 + q1 + q2 + 2) >> 2, q1 - tc2, q1 + tc2)
+    sq2 = torch.clamp((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3,
+                      q2 - tc2, q2 + tc2)
+    # ---- normal filter ----
+    maxv = (1 << bd) - 1
+    side = (b + (b >> 1)) >> 3
+    nd_p = (dp0 + dp3 < side)[:, :, None]
+    nd_q = (dq0 + dq3 < side)[:, :, None]
+    delta0 = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    dok = delta0.abs() < 10 * tc
+    delta = torch.clamp(delta0, -tc, tc)
+    np0 = (p0 + delta).clamp(0, maxv)
+    nq0 = (q0 - delta).clamp(0, maxv)
+    tch = tc >> 1
+    dp = torch.clamp((((p2 + p0 + 1) >> 1) - p1 + delta) >> 1, -tch, tch)
+    np1 = (p1 + dp).clamp(0, maxv)
+    dq = torch.clamp((((q2 + q0 + 1) >> 1) - q1 - delta) >> 1, -tch, tch)
+    nq1 = (q1 + dq).clamp(0, maxv)
+
+    sm = strong[:, :, None]
+    fm = (filt & ~strong)[:, :, None] & dok
+    out_p0 = torch.where(sm, sp0, torch.where(fm, np0, p0))
+    out_p1 = torch.where(sm, sp1, torch.where(fm & nd_p, np1, p1))
+    out_p2 = torch.where(sm, sp2, p2)
+    out_q0 = torch.where(sm, sq0, torch.where(fm, nq0, q0))
+    out_q1 = torch.where(sm, sq1, torch.where(fm & nd_q, nq1, q1))
+    out_q2 = torch.where(sm, sq2, q2)
+    if nop_e is not None and nop_e.shape == beta_e.shape:
+        keep_p = _shift_params(nop_e)[:, :, None] > 0
+        keep_q = _shift_params(noq_e)[:, :, None] > 0
+        out_p0 = torch.where(keep_p, p0, out_p0)
+        out_p1 = torch.where(keep_p, p1, out_p1)
+        out_p2 = torch.where(keep_p, p2, out_p2)
+        out_q0 = torch.where(keep_q, q0, out_q0)
+        out_q1 = torch.where(keep_q, q1, out_q1)
+        out_q2 = torch.where(keep_q, q2, out_q2)
+    new = torch.stack([p3, out_p2, out_p1, out_p0,
+                       out_q0, out_q1, out_q2, q3], dim=-1)
+    return _unwindows(new, 4, H, W)
+
+
+def _deblock_chroma_dir(pl, tc_e, bd: int, nop_e=None, noq_e=None):
+    """Chroma deblocking, one direction: edges every 8 chroma samples,
+    tc [Hc//4, ceil(Wc/8)] already zeroed where bs != 2. nop/noq:
+    PCM/tqb write suppression per segment. Chroma dims need not be
+    multiples of 8 (1080p 4:2:0 has Hc=540): the plane pads to the
+    ceil window count so the final in-picture edge (e.g. chroma 536)
+    is filtered."""
+    H, Wc_in = pl.shape
+    W8 = (Wc_in + 7) // 8
+    W = W8 * 8
+    if W != Wc_in:
+        pl = torch.cat([pl, pl.new_zeros((H, W - Wc_in))], 1)
+    H4 = H // 4
+    w = _windows(pl, 6, H4, W8)
+    tc = _shift_params(tc_e)[:, :, None]
+    p1, p0, q0, q1 = w[..., 0], w[..., 1], w[..., 2], w[..., 3]
+    maxv = (1 << bd) - 1
+    delta = torch.clamp((((q0 - p0) << 2) + p1 - q1 + 4) >> 3, -tc, tc)
+    act = tc > 0
+    if nop_e is not None and nop_e.shape == tc_e.shape:
+        keep_p = _shift_params(nop_e)[:, :, None] > 0
+        keep_q = _shift_params(noq_e)[:, :, None] > 0
+    else:
+        keep_p = keep_q = torch.zeros_like(act)
+    np0 = torch.where(act & ~keep_p, (p0 + delta).clamp(0, maxv), p0)
+    nq0 = torch.where(act & ~keep_q, (q0 - delta).clamp(0, maxv), q0)
+    new = torch.cat([torch.stack([p1, np0, nq0, q1], dim=-1), w[..., 4:]],
+                    dim=-1)
+    return _unwindows(new, 6, H, W)[:, :Wc_in]
+
+
+def _expand_ctb(a, cs, H: int, W: int):
+    """Per-CTB values -> per-pixel grid, gather-free (broadcast+reshape).
+    cs: int (square) or (csy, csx) for non-square chroma CTBs (4:2:2)."""
+    csy, csx = (cs, cs) if isinstance(cs, int) else cs
+    cH, cW = a.shape
+    g = a[:, None, :, None].expand(cH, csy, cW, csx)
+    return g.reshape(cH * csy, cW * csx)[:H, :W]
+
+
+def _sao_component(pl, typ, second, offs, cs, bd: int,
+                   vstage=None, st_b0=None, st_b2=None, st_a3=None):
+    """SAO one component. pl [H, W] int32 (deblocked input); typ/second
+    [cH, cW]; offs [cH, cW, 4]. vstage/stale: 16x16-CTB chroma halo
+    timing: neighbour reads in the +x direction of `stale` positions
+    source the vertical-deblock-stage plane."""
+    H, W = pl.shape
+    maxv = (1 << bd) - 1
+    typ_px = _expand_ctb(typ, cs, H, W)
+    sec_px = _expand_ctb(second, cs, H, W)
+    o = [_expand_ctb(offs[:, :, k], cs, H, W) for k in range(4)]
+
+    # ---- band ----
+    band = pl >> (bd - 5)
+    badd = torch.zeros_like(pl)
+    for k in range(4):
+        badd = badd + torch.where(band == ((sec_px + k) & 31), o[k], 0)
+    out_band = (pl + badd).clamp(0, maxv)
+
+    # stale-read patching (16x16 CTBs): center-space masks say which
+    # +x neighbor reads land on positions whose horizontal deblock the
+    # schedule runs after this CTB's SAO: those reads source the
+    # vertical-stage plane instead
+    use_stale = (vstage is not None and st_b0 is not None and
+                 st_b0.shape == pl.shape)
+
+    # ---- edge (all 4 classes, select by sec_px) ----
+    yy = torch.arange(H, device=pl.device)[:, None]
+    xx = torch.arange(W, device=pl.device)[None, :]
+    neigh = (((-1, 0), (1, 0)), ((0, -1), (0, 1)),
+             ((-1, -1), (1, 1)), ((1, -1), (-1, 1)))
+    out_edge = pl
+    for eo, ((ax, ay), (bx, by)) in enumerate(neigh):
+        a = torch.roll(pl, (-ay, -ax), (0, 1))
+        bq = torch.roll(pl, (-by, -bx), (0, 1))
+        if use_stale:
+            if eo == 0:
+                bq = torch.where(st_b0 > 0,
+                                 torch.roll(vstage, (-by, -bx), (0, 1)), bq)
+            elif eo == 2:
+                bq = torch.where(st_b2 > 0,
+                                 torch.roll(vstage, (-by, -bx), (0, 1)), bq)
+            elif eo == 3:
+                a = torch.where(st_a3 > 0,
+                                torch.roll(vstage, (-ay, -ax), (0, 1)), a)
+        idx = 2 + torch.sign(pl - a) + torch.sign(pl - bq)
+        eadd = (torch.where(idx == 0, o[0], 0) +
+                torch.where(idx == 1, o[1], 0) +
+                torch.where(idx == 3, o[2], 0) +
+                torch.where(idx == 4, o[3], 0))
+        valid = ((xx >= max(0, -min(ax, bx, 0))) &
+                 (xx < W - max(ax, bx, 0)) &
+                 (yy >= -min(ay, by, 0)) &
+                 (yy < H - max(ay, by, 0)))
+        res = torch.where(valid, (pl + eadd).clamp(0, maxv), pl)
+        out_edge = torch.where(sec_px == eo, res, out_edge)
+
+    return torch.where(typ_px == 1, out_band,
+                       torch.where(typ_px == 2, out_edge, pl))
+
+
+def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
+                         tc_cv1, tc_ch1, tc_cv2, tc_ch2, sao,
+                         nop_v, noq_v, nop_h, noq_h,
+                         nop_cv, noq_cv, nop_ch, noq_ch, nf4, nf4c,
+                         st_b0, st_b2, st_a3,
+                         *, bd, bdc, cs, do_deblock, do_sao, hs=1, vs=1,
+                         stage=contextlib.nullcontext):
+    """Whole-frame deblock (vertical then horizontal, luma + chroma)
+    followed by SAO. y [H, W], cb/cr [Hc, Wc] int32 (views are fine:
+    nothing is written in place); returns new (y, cb, cr). nop*/noq*/nf4:
+    PCM/tqb no-filter suppression + restore ((1,1) placeholders when
+    absent); st_*: 16x16-CTB SAO chroma halo positions. hs/vs: chroma
+    subsampling shifts (1,1=4:2:0; 1,0=4:2:2; 0,0=4:4:4). `stage(name)`
+    is a context manager entered around "deblock" and "sao" (the
+    engine's stage timers).
+
+    The JAX package's `ybounds` argument (a halo band of a larger frame,
+    for its mesh's band-sharded filtering) is left out: it comes with
+    the multi-device waves."""
+    vst_cb = vst_cr = None
+    if do_deblock:
+        with stage("deblock"):
+            y = _deblock_luma_dir(y, beta_v, tc_v, bd, nop_v, noq_v)
+            y = _deblock_luma_dir(y.T, beta_h.T, tc_h.T, bd,
+                                  nop_h.T, noq_h.T).T
+            cb = _deblock_chroma_dir(cb, tc_cv1, bdc, nop_cv, noq_cv)
+            cr = _deblock_chroma_dir(cr, tc_cv2, bdc, nop_cv, noq_cv)
+            if do_sao and cs == 16:
+                vst_cb, vst_cr = cb, cr    # vertical-stage snapshot
+            cb = _deblock_chroma_dir(cb.T, tc_ch1.T, bdc,
+                                     nop_ch.T, noq_ch.T).T
+            cr = _deblock_chroma_dir(cr.T, tc_ch2.T, bdc,
+                                     nop_ch.T, noq_ch.T).T
+    if do_sao:
+        with stage("sao"):
+            pre_y, pre_cb, pre_cr = y, cb, cr
+            csc = (cs >> vs, cs >> hs)     # chroma CTB (rows, cols)
+            s32 = sao.to(torch.int32)
+            y = _sao_component(y, s32[:, :, 0, 0], s32[:, :, 0, 1],
+                               s32[:, :, 0, 2:6], cs, bd)
+            cb = _sao_component(cb, s32[:, :, 1, 0], s32[:, :, 1, 1],
+                                s32[:, :, 1, 2:6], csc, bdc, vst_cb,
+                                st_b0, st_b2, st_a3)
+            cr = _sao_component(cr, s32[:, :, 2, 0], s32[:, :, 2, 1],
+                                s32[:, :, 2, 2:6], csc, bdc, vst_cr,
+                                st_b0, st_b2, st_a3)
+            if nf4.shape != (1, 1):
+                # restore_tqb_pixels: SAO writes to no-filter blocks
+                # revert to the deblocked input (4x4 luma /
+                # (4>>vs)x(4>>hs) chroma per block)
+                H, W = y.shape
+                Hc, Wc = cb.shape
+                m = (nf4 > 0).repeat_interleave(4, 0) \
+                    .repeat_interleave(4, 1)[:H, :W]
+                mc = (nf4c > 0).repeat_interleave(4 >> vs, 0) \
+                    .repeat_interleave(4 >> hs, 1)[:Hc, :Wc]
+                y = torch.where(m, pre_y, y)
+                cb = torch.where(mc, pre_cb, cb)
+                cr = torch.where(mc, pre_cr, cr)
+    return y, cb, cr

@@ -27,8 +27,8 @@ module holds what surrounds them:
 
 Levels. A job's level is 1 + the highest level among the jobs that
 wrote its available neighbours (0 where the neighbour was not written
-by a job: PCM samples, and later inter blocks, are in the planes before
-the kernel starts). Jobs of one level are independent; level L may
+by a job: PCM samples, and the inter prediction of an inter picture, are
+in the planes before the kernel starts). Jobs of one level are independent; level L may
 start when levels below L are done. The planes never depend on each
 other, so one level index serves all three.
 

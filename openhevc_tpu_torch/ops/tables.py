@@ -138,3 +138,30 @@ def tables_from_numpy(d: dict) -> dict[str, torch.Tensor]:
 
 
 TABLES = tables_from_numpy(numpy_tables())
+
+# ---- inter prediction interpolation filters (8.5.3.3.3, Tables 8-11/8-12) --
+# Rows are the fractional phases 1.. (phase 0 is a plain copy); numpy, like
+# everything above, and outside `numpy_tables()`: ops/mc.py turns them into
+# its all-phase matrices.
+QPEL_FILTERS = np.array([
+    [-1, 4, -10, 58, 17, -5, 1, 0],
+    [-1, 4, -11, 40, 40, -11, 4, -1],
+    [0, 1, -5, 17, 58, -10, 4, -1]], np.int64)
+EPEL_FILTERS = np.array([
+    [-2, 58, 10, -2],
+    [-4, 54, 16, -2],
+    [-6, 46, 28, -4],
+    [-4, 36, 36, -4],
+    [-4, 28, 46, -6],
+    [-2, 16, 54, -4],
+    [-2, 10, 58, -2]], np.int64)
+
+# ---- deblocking thresholds (8.7.2.5.3, Table 8-12: tc' and beta' by Q) ------
+TC_TABLE = np.array([
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4,
+    5, 5, 6, 6, 7, 8, 9, 10, 11, 13, 14, 16, 18, 20, 22, 24], np.int32)
+BETA_TABLE = np.array([
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 6, 7, 8,
+    9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24, 26, 28, 30, 32, 34,
+    36, 38, 40, 42, 44, 46, 48, 50, 52, 54, 56, 58, 60, 62, 64], np.int32)

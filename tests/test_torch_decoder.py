@@ -1,7 +1,8 @@
 """The whole slice: openhevc_tpu_torch `Decoder(device="cpu")` vs the
 encoder's reconstruction and the JAX package's decoders on small intra
 streams (WPP and PCM included), and NotImplementedError for pictures
-outside the slice. Tolerance: none (8-bit samples)."""
+outside the slice (inter and filtered streams: tests/test_torch_inter.py,
+tests/test_torch_filters.py). Tolerance: none (8-bit samples)."""
 import numpy as np
 import pytest
 import torch
@@ -64,11 +65,14 @@ def test_outputs_stay_on_device_until_fetched():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(deblock=True), "in-loop filters"),
-    (dict(sao=True), "in-loop filters"),
+    (dict(scaling_list="default", deblock=True), "scaling lists"),
+    (dict(scaling_list="default", sao=True), "Queue 1 item 7"),
     (dict(bit_depth=12), "bit depth 12/12"),
 ])
 def test_outside_the_slice_raises(kw, what):
+    """In-loop filters are inside the slice now (tests/
+    test_torch_filters.py); scaling lists and bit depths above 10 are
+    not, with or without filters."""
     from openhevc_tpu_torch.decoder import Decoder
     data, _ = encode(64, 64, n=1, seed=1, qp=30, ctb_log2=4, **kw)
     with pytest.raises(NotImplementedError, match=what):

@@ -1,0 +1,314 @@
+"""Port in-loop filters: `prep_filters` + `apply_filters_device` of the
+port (ops/filters.py) vs the JAX package's (ops/filters_jax.py, plain XLA,
+runs on the CPU) and vs the reference-exact scalar schedule
+(ops/filters_sched.py), on the matrix of tests/test_device_filters.py:
+CTB 16 / 32, PCM, transquant bypass, deblock-only, SAO-only, and, for
+the filter functions alone, 4:2:2 / 4:4:4 (the decoder still stops those
+formats). Then whole decodes with the filters on, intra and inter, vs
+`Decoder("np")`. Tolerance: none (integer samples)."""
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_frames
+from test_device_filters import _capture_frames, _frames_fmt
+from test_torch_banded import _force_banded
+from test_torch_inter import (assert_same, decode, lowdelay, np_decode,
+                              random_access, stream)
+
+MATRIX_420 = [
+    (64, 64, 5, 1, False, False, True, True),    # baseline
+    (64, 64, 4, 2, False, False, True, True),    # 16x16 CTB halo quirk
+    (96, 64, 4, 3, False, False, True, True),    # non-square, ctb16
+    (64, 64, 5, 4, True, False, True, True),     # PCM no-filter blocks
+    (64, 64, 5, 5, False, True, True, True),     # transquant bypass
+    (64, 64, 4, 6, True, True, True, True),      # everything at once
+    (64, 64, 4, 7, True, False, False, True),    # deblock-only + pcm
+    (64, 64, 4, 8, True, False, True, False),    # sao-only + pcm
+    (128, 128, 6, 9, False, False, True, True),  # CTB 64
+    (72, 40, 4, 10, False, False, True, True),   # chroma dims not 8-multiples
+]
+MATRIX_FMT = [
+    (2, 64, 64, 5, 31, False, False, True, True),   # 4:2:2 baseline
+    (2, 96, 64, 5, 32, True, False, True, True),    # 4:2:2 + PCM
+    (2, 64, 64, 5, 33, False, True, True, True),    # 4:2:2 + tqb
+    (2, 64, 64, 5, 34, False, False, False, True),  # 4:2:2 deblock only
+    (3, 64, 64, 5, 35, False, False, True, True),   # 4:4:4 baseline
+    (3, 96, 64, 5, 36, True, False, True, True),    # 4:4:4 + PCM
+    (3, 64, 64, 5, 37, False, True, True, True),    # 4:4:4 + tqb
+    (3, 64, 64, 5, 38, False, False, True, False),  # 4:4:4 SAO only
+    (2, 64, 64, 4, 39, False, False, False, True),  # 4:2:2 ctb16 dbk-only
+    (2, 64, 64, 4, 40, False, False, True, True),   # 4:2:2 ctb16 + SAO
+    (3, 96, 64, 4, 41, False, False, True, True),   # 4:4:4 ctb16 + SAO
+    (2, 96, 64, 4, 42, True, False, True, True),    # 4:2:2 ctb16+SAO+PCM
+]
+
+
+def _jax_filter(pre, fs):
+    import jax.numpy as jnp
+    from openhevc_tpu.ops import filters_jax as F
+    pff = F.prep_filters(fs)
+    fargs = tuple(jnp.asarray(a) for a in F.fargs_arrays(pff))
+    sps = fs.sps
+    out = F.apply_filters_device(
+        *(jnp.asarray(np.asarray(p, np.int32)) for p in pre), *fargs,
+        bd=sps.bit_depth, bdc=sps.bit_depth_chroma, cs=1 << sps.log2_ctb,
+        do_deblock=pff["do_deblock"], do_sao=pff["do_sao"], hs=sps.hshift1,
+        vs=sps.vshift1)
+    return pff, [np.asarray(o) for o in out]
+
+
+def _port_filter(pre, fs, views=False):
+    from openhevc_tpu_torch.ops import filters as F
+    assert F.device_filters_ok(fs)
+    pff = F.prep_filters(fs)
+    fargs = [torch.from_numpy(np.ascontiguousarray(a))
+             for a in F.fargs_arrays(pff)]
+    planes = [torch.from_numpy(np.asarray(p, np.int32)) for p in pre]
+    if views:       # un-padded views of larger buffers, as the engine's
+        big = [torch.full((p.shape[0] + 9, p.shape[1] + 5), -5,
+                          dtype=torch.int32) for p in planes]
+        for b, p in zip(big, planes):
+            b[3:3 + p.shape[0], 2:2 + p.shape[1]] = p
+        planes = [b[3:3 + p.shape[0], 2:2 + p.shape[1]]
+                  for b, p in zip(big, planes)]
+    sps = fs.sps
+    stages = []
+
+    class stage:
+        def __init__(self, name):
+            stages.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    out = F.apply_filters_device(
+        *planes, *fargs, bd=sps.bit_depth, bdc=sps.bit_depth_chroma,
+        cs=1 << sps.log2_ctb, do_deblock=pff["do_deblock"],
+        do_sao=pff["do_sao"], hs=sps.hshift1, vs=sps.vshift1, stage=stage)
+    assert stages == ["deblock"] * pff["do_deblock"] + ["sao"] * pff["do_sao"]
+    if views:
+        assert all((b == -5).sum() == b.numel() - p.numel()
+                   for b, p in zip(big, planes))
+    return pff, [o.numpy() for o in out]
+
+
+def _check_stream(data, views=False):
+    n = 0
+    for pre, fs, truth in _capture_frames(data):
+        jp, want = _jax_filter(pre, fs)
+        pp, got = _port_filter(pre, fs, views)
+        assert set(jp) == set(pp)
+        for k in jp:                      # the host prep, array by array
+            a, b = np.asarray(jp[k]), np.asarray(pp[k])
+            assert a.dtype == b.dtype and np.array_equal(a, b), k
+        for c in range(3):
+            assert got[c].dtype == np.int32
+            assert np.array_equal(got[c], want[c]), c
+            assert np.array_equal(got[c].astype(np.int64), truth[c]), c
+        n += 1
+    assert n == 2
+
+
+@pytest.mark.parametrize("W,H,ctb,seed,pcm,tqb,sao,dbk", MATRIX_420)
+def test_filters_match_jax_and_schedule(W, H, ctb, seed, pcm, tqb, sao, dbk):
+    from openhevc_tpu.encoder.intra_enc import encode_intra_stream
+    frames = make_frames(W, H, 2, np.random.default_rng(seed), smooth=False)
+    kw = dict(qp=34, ctb_log2=ctb, seed=seed, pcm=pcm, sao=sao, deblock=dbk)
+    if tqb:
+        kw["transquant_bypass"] = True
+    data, _ = encode_intra_stream(frames, W, H, **kw)
+    _check_stream(data, views=seed % 2 == 0)
+
+
+@pytest.mark.parametrize("fmt,W,H,ctb,seed,pcm,tqb,sao,dbk", MATRIX_FMT)
+def test_filters_chroma_formats_match_jax(fmt, W, H, ctb, seed, pcm, tqb,
+                                          sao, dbk):
+    from openhevc_tpu.encoder.intra_enc import encode_intra_stream
+    frames = _frames_fmt(W, H, 2, np.random.default_rng(seed), fmt)
+    kw = dict(qp=34, ctb_log2=ctb, seed=seed, pcm=pcm, sao=sao, deblock=dbk,
+              chroma_format_idc=fmt, min_cb_log2=3)
+    if tqb:
+        kw["transquant_bypass"] = True
+    data, _ = encode_intra_stream(frames, W, H, **kw)
+    _check_stream(data)
+
+
+def test_filter_tables_and_keys_match():
+    from openhevc_tpu.ops import deblock_np, filters_jax
+    from openhevc_tpu_torch.ops import filters, tables
+    assert np.array_equal(tables.TC_TABLE, deblock_np.TC_TABLE)
+    assert np.array_equal(tables.BETA_TABLE, deblock_np.BETA_TABLE)
+    assert filters.FARG_KEYS == filters_jax.FARG_KEYS
+
+
+def test_inter_boundary_strengths_match_jax():
+    """The MV / reference rule of the boundary strengths, on pictures
+    with uni- and bi-predicted blocks."""
+    from openhevc_tpu.ops import filters_jax
+    from openhevc_tpu_torch.ops import filters
+    from test_torch_inter import _captured
+    data = lowdelay("b_weighted_tmvp", deblock=True, sao=True)
+    seen = 0
+    for fs, _refs in _captured(data):
+        want = filters_jax.boundary_strengths_vec(fs)
+        got = filters.boundary_strengths_vec(fs)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+        seen += int((got[0] == 1).any())
+        jp, pp = filters_jax.prep_filters(fs), filters.prep_filters(fs)
+        assert set(jp) == set(pp)
+        assert all(np.array_equal(np.asarray(jp[k]), np.asarray(pp[k]))
+                   for k in jp)
+    assert seen > 0
+
+
+# ---- whole decodes with the filters on ------------------------------------
+
+INTRA_FILTERED = {
+    "ctb16": dict(W=64, H=64, ctb_log2=4),
+    "ctb32_wpp": dict(W=128, H=64, ctb_log2=5, wpp=True),
+    "ctb64": dict(W=128, H=128, ctb_log2=6),
+    "pcm": dict(W=64, H=64, ctb_log2=4, pcm=True),
+    "tqb": dict(W=64, H=64, ctb_log2=5, transquant_bypass=True),
+    "tiles": dict(W=128, H=64, ctb_log2=4, tile_cols=2, tile_rows=2),
+    "deblock_only": dict(W=64, H=64, ctb_log2=4, sao=False),
+    "sao_only": dict(W=64, H=64, ctb_log2=4, deblock=False),
+    "odd_chroma": dict(W=72, H=40, ctb_log2=4),
+    "ten_bit": dict(W=64, H=64, ctb_log2=4, bit_depth=10),
+}
+
+
+def _intra_filtered(name):
+    from openhevc_tpu.encoder.intra_enc import encode_intra_stream
+    kw = dict(sao=True, deblock=True, qp=34)
+    kw.update(INTRA_FILTERED[name])
+    W, H = kw.pop("W"), kw.pop("H")
+    bd = kw.get("bit_depth", 8)
+    frames = make_frames(W, H, 2, np.random.default_rng(3), smooth=False)
+    if bd > 8:
+        frames = [tuple(p.astype(np.uint16) << (bd - 8) for p in f)
+                  for f in frames]
+    return encode_intra_stream(frames, W, H, seed=3, **kw)[0], W, \
+        1 << kw["ctb_log2"]
+
+
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("name", sorted(INTRA_FILTERED))
+def test_port_decoder_filtered_intra_matches_np(name, banded, monkeypatch):
+    from openhevc_tpu_torch.decoder import Decoder
+    data, W, cs = _intra_filtered(name)
+    want = np_decode(data)
+    if banded:
+        _force_banded(monkeypatch, W, cs)
+    got, pics = decode(Decoder(device="cpu"), data)
+    assert_same(got, want)
+    assert all(p.planes.device_filtered for p in pics)
+
+
+INTER_FILTERED = {       # name -> (test_torch_inter's stream, more options)
+    "p": ("p", dict()),
+    "p_ctb32_two_refs": ("p", dict(ctb_log2=5, W=96, n_refs=2)),
+    "p_deblock_only": ("p", dict(sao=False)),
+    "b_weighted_tmvp": ("b_weighted_tmvp", dict()),
+    "ten_bit": ("ten_bit", dict()),
+    "ra": ("ra", dict()),
+    "ra_tiles": ("ra_tiles", dict(ctb_log2=5)),
+    "ra_tmvp_wpp": ("ra_tmvp_wpp", dict()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INTER_FILTERED))
+def test_port_decoder_filtered_inter_matches_np(name):
+    """The DPB entry is the filtered picture: an error in the filters
+    shows in the pictures that predict from it."""
+    from openhevc_tpu_torch.decoder import Decoder
+    base, kw = INTER_FILTERED[name]
+    data = stream(base, **dict(dict(sao=True, deblock=True), **kw))
+    got, pics = decode(Decoder(device="cpu"), data)
+    assert_same(got, np_decode(data))
+    assert all(p.planes.device_filtered for p in pics)
+
+
+def test_port_decoder_filtered_matches_jax_decoder():
+    from openhevc_tpu.decoder import Decoder as JaxDecoder
+    from openhevc_tpu_torch.decoder import Decoder
+    data = random_access("ra_tiles", sao=True, deblock=True, ctb_log2=5)
+    assert_same(decode(Decoder(device="cpu"), data)[0],
+                decode(JaxDecoder("jax"), data)[0])
+
+
+def test_filter_pattern_outside_the_model_raises(monkeypatch):
+    """Where `prep_filters` gives up on a CTB-16 halo pattern the JAX
+    package falls back to its host schedule; the port refuses the picture
+    and never returns it unfiltered."""
+    from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.models import pipeline
+    from openhevc_tpu_torch.ops import filters
+    data, _, _ = _intra_filtered("ctb16")
+    monkeypatch.setattr(filters, "_chroma_stale_reads", lambda fs: None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        decode(Decoder(device="cpu"), data)
+    monkeypatch.undo()
+    monkeypatch.setattr(pipeline, "prep_filters", lambda fs: None)
+    with pytest.raises(NotImplementedError, match="in-loop filters"):
+        decode(Decoder(device="cpu"), data)
+
+
+def test_filters_ride_in_the_one_upload(monkeypatch):
+    """A filtered inter picture makes one host-to-device copy: arenas,
+    meta, motion deltas and the filters' control tensors together."""
+    from openhevc_tpu_torch.models import pipeline
+    from test_torch_inter import _captured
+    fs, refs = _captured(lowdelay("p", sao=True, deblock=True))[-1]
+    eng = pipeline.TorchEngine("cpu")
+    eng.prepare(fs, refs)                      # stage 1 of the references
+    uploads = []
+    orig = pipeline._upload
+    monkeypatch.setattr(pipeline, "_upload",
+                        lambda arrays, dev: (uploads.append(len(arrays)),
+                                             orig(arrays, dev))[1])
+    k = eng.prepare(fs, refs)
+    assert uploads == [4 + 2 + len(pipeline.fargs_arrays({}))]
+    f = k["filters"]
+    assert f["do_deblock"] and f["do_sao"] and f["cs"] == 16
+    assert len(f["fargs"]) == 22 and f["fargs"][0].dtype == torch.int16
+    assert f["fargs"][0].shape == (16, 8)      # beta_v [H/4, W/8]
+
+
+def test_unfiltered_pictures_carry_no_filter_tensors():
+    from openhevc_tpu_torch.models import pipeline
+    from test_torch_inter import _captured
+    fs, refs = _captured(lowdelay("p"))[0]
+    k = pipeline.TorchEngine("cpu").prepare(fs, refs)
+    assert k["filters"] is None
+    assert fs.deblock_disabled and not fs.sao_luma
+
+
+@pytest.mark.parametrize("fmt", [2, 3])
+def test_decoder_still_stops_other_chroma_formats(fmt):
+    from openhevc_tpu.encoder.intra_enc import encode_intra_stream
+    from openhevc_tpu_torch.decoder import Decoder
+    frames = _frames_fmt(64, 64, 1, np.random.default_rng(fmt), fmt)
+    data, _ = encode_intra_stream(frames, 64, 64, qp=34, ctb_log2=5, seed=1,
+                                  sao=True, deblock=True,
+                                  chroma_format_idc=fmt, min_cb_log2=3)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        decode(Decoder(device="cpu"), data)
+
+
+def test_shift_params_and_expand_ctb():
+    from openhevc_tpu_torch.ops.filters import _expand_ctb, _shift_params
+    a = torch.arange(12, dtype=torch.int16).reshape(3, 4)
+    assert _shift_params(a).tolist() == [[1, 2, 3, 0], [5, 6, 7, 4],
+                                         [9, 10, 11, 8]]
+    assert _shift_params(a).dtype == torch.int32
+    g = _expand_ctb(a, (2, 3), 5, 10)
+    assert g.shape == (5, 10)
+    assert g[:, 0].tolist() == [0, 0, 4, 4, 8] and g[0, 2:5].tolist() == \
+        [0, 1, 1]
+    assert torch.equal(_expand_ctb(a, 2, 6, 8),
+                       a.repeat_interleave(2, 0).repeat_interleave(2, 1))

@@ -54,7 +54,11 @@ def _imports(path):
 
 def test_no_jax_or_jax_package_imports():
     files = _sources()
-    assert len(files) > 15
+    assert len(files) > 17
+    names = {os.path.relpath(f, ROOT) for f in files}
+    for mod in ("ops/mc.py", "ops/filters.py", "ops/intra_fused.py",
+                "models/pipeline.py", "decoder.py"):
+        assert os.path.join("openhevc_tpu_torch", mod) in names
     bad = [(os.path.relpath(f, ROOT), line, mod)
            for f in files for mod, line in _imports(f)
            if _forbidden(mod) or mod == "<escapes the package>"]
@@ -75,6 +79,8 @@ def test_import_leaves_jax_unloaded():
             "import openhevc_tpu_torch\n"
             "from openhevc_tpu_torch.decoder import Decoder\n"
             "import openhevc_tpu_torch.models.pipeline\n"
+            "import openhevc_tpu_torch.ops.mc\n"
+            "import openhevc_tpu_torch.ops.filters\n"
             "import openhevc_tpu_torch.kernels\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'openhevc_tpu')]\n"

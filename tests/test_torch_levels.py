@@ -57,6 +57,20 @@ def _constrained_intra_stream():
                                   seed=101, constrained_intra=True)[0]
 
 
+def _inter_stream(name):
+    """Low-delay / hierarchical-B streams of tests/test_torch_inter.py:
+    intra TUs beside inter samples, which no job writes; "all_inter" has
+    pictures with no intra job at all."""
+    import test_torch_inter as ti
+    if name == "all_inter":
+        return ti._all_inter_stream()
+    return ti.stream({"inter": "p", "inter_ra_wpp": "ra_tmvp_wpp",
+                      "inter_tiles": "ra_tiles"}[name])
+
+
+INTER_CASES = ["inter", "inter_ra_wpp", "inter_tiles", "all_inter"]
+
+
 def _ref_coords(x, y, s):
     """(xs, ys) of the 4s+1 reference samples in spec order."""
     i = np.arange(2 * s)
@@ -67,21 +81,31 @@ def _ref_coords(x, y, s):
 
 # ---- (a) the dependency invariant ---------------------------------------
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["constrained_intra"])
+@pytest.mark.parametrize("name", sorted(CASES) + ["constrained_intra"] +
+                         INTER_CASES)
 def test_available_neighbours_are_of_lower_levels(name, monkeypatch):
     """No job of a level reads what another job of that level writes:
     every neighbour sample marked available in `ij_avail` lies in a
     block written by an earlier job of a strictly lower level, or by no
-    job at all (level 0: PCM samples, there before the kernel starts).
-    Under constrained intra prediction the samples of inter blocks, which
-    no job writes, must be unavailable."""
-    data = _constrained_intra_stream() if name == "constrained_intra" \
-        else _stream(name, monkeypatch)
+    job at all (level 0: PCM samples and, in inter pictures, inter
+    samples: both are in the planes before the kernel starts, which is
+    why the prefill must be complete by then). Under constrained intra
+    prediction the samples of inter blocks must be unavailable."""
+    if name in INTER_CASES:
+        data = _inter_stream(name)
+    else:
+        data = _constrained_intra_stream() if name == "constrained_intra" \
+            else _stream(name, monkeypatch)
     fss = parsed_port(data)
-    checked = level0 = unwritten = 0
+    checked = level0 = unwritten = no_jobs = 0
     for fs in fss:
         im, iav = fs.native_raw["ij_meta"], fs.native_raw["ij_avail"]
         if not len(im):
+            # an all-inter picture: no job, no level, an empty schedule
+            assert fs.inter_pbs and fs.native_raw["n_levels"] == 0
+            assert fs.native_pack["n"] == 0
+            assert not fs.native_pack["meta6"][5].any()
+            no_jobs += 1
             continue
         assert fs.native_raw["n_levels"] == im[:, 6].max()
         assert im[:, 6].min() >= 1
@@ -107,14 +131,23 @@ def test_available_neighbours_are_of_lower_levels(name, monkeypatch):
             assert lvl == 1 + (wl.max() if av.any() else 0), (fs.poc, j)
             checked += int(av.sum())
             level0 += int((wj == -1).sum())
+            if name in INTER_CASES:
+                # what no job wrote is an inter block's prediction
+                sh = (0, 0) if plane == 0 else (fs.sps.vshift1,
+                                                fs.sps.hshift1)
+                pf = fs.motion.pred_flag[(ys[av] << sh[0]) >> 2,
+                                         (xs[av] << sh[1]) >> 2]
+                assert (pf[wj == -1] > 0).all(), (fs.poc, j)
+                assert (pf[wj >= 0] == 0).all(), (fs.poc, j)
             inside = (xs >= 0) & (ys >= 0) & (xs < pw) & (ys < ph) & ~av
             unwritten += int((writer_job[plane][ys[inside], xs[inside]]
                               == -1).sum())
     assert checked > 0
-    if name == "pcm":
+    if name == "pcm" or name in INTER_CASES:
         assert level0 > 0, "no available neighbour outside the jobs"
     else:
         assert level0 == 0
+    assert (no_jobs > 0) == (name == "all_inter")
     if name == "constrained_intra":
         assert unwritten > 0, "no intra job beside an inter block"
 
@@ -271,10 +304,22 @@ def test_level_schedule_shape(name, monkeypatch):
 
 
 def test_level_schedule_of_no_jobs():
-    from openhevc_tpu_torch.ops.intra_fused import level_schedule
+    from openhevc_tpu_torch.ops.intra_fused import (level_schedule,
+                                                    sort_meta_by_band)
     order, lb = level_schedule(torch.zeros(8, dtype=torch.int16), 0, 0)
     assert order.shape == (0,) and lb.tolist() == [0]
     assert order.dtype == lb.dtype == torch.int32
+    # ... and of a real all-inter picture, band sorted or not
+    fss = [fs for fs in parsed_port(_inter_stream("all_inter"))
+           if fs.native_pack["n"] == 0]
+    assert len(fss) == 2
+    for fs in fss:
+        m6 = fs.native_pack["meta6"]
+        sorted6, bounds = sort_meta_by_band(m6, 0, 16, 1, 2)
+        assert sorted6 is m6 and bounds.tolist() == [0, 0, 0]
+        order, lb = level_schedule(torch.from_numpy(m6[5]), 0,
+                                   fs.native_raw["n_levels"])
+        assert order.shape == (0,) and lb.tolist() == [0]
 
 
 def _wrapper_args():

@@ -4,13 +4,17 @@ one GPU (openhevc_tpu_torch; needs a CUDA device):
 
     python3 tools/profile_torch_prep.py [--frames 3]
 
-For the first frames of each bench stream it prints (a) the synchronised
-host-clock time of prepare() and of its parts run alone: the band sort
-on the host, the one host-to-device copy, the residual planes, the meta
-derivation and the level schedule; (b) a `torch.profiler` table of
-prepare(): operator count, host time and device time by operator; and
-the card's name and power limit. Times are means over the frames after
-one warm-up pass.
+For the first frames of each bench stream (decode order; an inter
+picture is prepared with its decoded references on the card) it prints
+(a) the synchronised host-clock time of prepare() and of its parts run
+alone: the band sort on the host, the in-loop filters' control data
+(`prep_filters`, with its boundary strengths alone) and the motion
+packing (`_pack_inter`: sparse deltas, weight grids, stage 1 of the
+references, here all cached) on the host, the one host-to-device copy,
+the residual planes, the meta derivation and the level schedule; (b) a
+`torch.profiler` table of prepare(): operator count, host time and
+device time by operator; and the card's name and power limit. Times are
+means over the frames after one warm-up pass.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from openhevc_tpu_torch.models import pipeline as pl
+    from openhevc_tpu_torch.ops import filters as flt
     from openhevc_tpu_torch.ops import intra_fused as ifm
     eng = pl.TorchEngine("cuda")
 
@@ -44,11 +49,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, out
 
+    def pictures(name):
+        """(fs, refs) of the stream's first nframes pictures."""
+        dec = cs.smoke_decoder(keep=lambda fs: True)
+        dec.decode(cs.first_frames(cs.load_stream(name)[0], nframes))
+        dec.flush()
+        return dec.kept
+
     for name in cs.STREAMS:
-        fss = cs.parse_only(cs.first_frames(cs.load_stream(name)[0],
-                                            nframes))
-        for fs in fss:
-            eng.prepare(fs)                                   # warm-up
+        fss = pictures(name)
+        for fs, refs in fss:
+            eng.prepare(fs, refs)                             # warm-up
         parts = {}
 
         def add(key, fn):
@@ -56,12 +67,20 @@ def main() -> int:
             parts[key] = parts.get(key, 0.0) + ms / len(fss)
             return out
 
-        for fs in fss:
+        for fs, refs in fss:
             sps, npk = fs.sps, fs.native_pack
             H, W = sps.height, sps.width
             Hc, Wc = H >> sps.vshift1, W >> sps.hshift1
             plan = eng.fused_plan(fs)
-            add("prepare (all)", lambda: eng.prepare(fs))
+            add("prepare (all)", lambda: eng.prepare(fs, refs))
+            if not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma:
+                add("prep_filters (host)", lambda: flt.prep_filters(fs))
+                if not fs.deblock_disabled:
+                    add("... its boundary_strengths_vec",
+                        lambda: flt.boundary_strengths_vec(fs))
+            if fs.inter_pbs:
+                add("_pack_inter (host; stage 1 cached)",
+                    lambda: eng._pack_inter(fs, refs, (H, W, Hc, Wc)))
             host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
             if plan[0] == "banded":
                 host[3], _ = add("band sort (host)",
@@ -81,8 +100,8 @@ def main() -> int:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for fs in fss:
-                eng.prepare(fs)
+            for fs, refs in fss:
+                eng.prepare(fs, refs)
             torch.cuda.synchronize()
         avg = prof.key_averages()
         print(f"{name} prepare() over {len(fss)} frames: "
