@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Five bench streams (bench_streams/r4a_*.265, each decoded whole):
+Seven bench streams (bench_streams/r4a_*.265, each decoded whole):
 i_main (832x480 all-intra Main, 32 frames, WPP; whole-frame intra
 kernel), main10_4k (3840x2160 all-intra Main10, 3 frames, WPP; banded
-intra kernel), and three hierarchical-B streams whose every picture takes
+intra kernel), three hierarchical-B streams whose every picture takes
 the banded kernel on top of the inter prediction: ra_main_1080p (17
 frames, no in-loop filters), ra_tiles_1080p (9 frames, 4x2 tiles,
 deblocking + SAO) and ra_main10_4k (9 frames, Main10 4K, tiles,
-deblocking + SAO). Phases (each one fails the run with a non-zero exit):
+deblocking + SAO), rext_444 (832x480 all-intra 4:4:4, 6 frames, WPP;
+banded kernel with chroma bands as tall as luma bands) and shvc_2layer
+(416x240 base layer, 832x480 enhancement layer predicted from the
+upsampled base layer, 12 access units, through `ShvcDecoder`; the
+whole-frame kernel in both layers; only enhancement-layer pictures come
+out). Phases (each one fails the run with a non-zero exit):
   1. build the CUDA kernels (one nvcc per source, all at once) and the
      native parse core from the checkout's sources; print nvcc's
      register / shared-memory report for each kernel;
@@ -29,18 +34,26 @@ deblocking + SAO). Phases (each one fails the run with a non-zero exit):
      the serial-order entry, and with no jobs (n == 0, an all-inter
      picture's call) it launches nothing and leaves the prefill as it is.
      On that picture and on one of ra_main10_4k: the MC's pair mode ==
-     its tap mode exactly, both timed in turns. Print each frame's
-     level-width histogram; time the kernels;
+     its tap mode exactly, both timed in turns. On frame 0 of rext_444
+     (4:4:4, chroma TUs up to 32x32 with the smoothing filter): the
+     banded kernel == its plain version == the serial-order entry on the
+     whole frame. On the first base-layer picture of shvc_2layer: the
+     inter-layer upsample (torch ops, no kernel) == a per-sample
+     evaluation of the tap plan, timed with its byte bound. Print each
+     frame's level-width histogram; time the kernels;
   4. decode every frame of each stream through `Decoder(device="cuda")`
-     with every launch counter set to 0 just before, require each
-     stream's kernel to have launched once per picture that has an intra
-     job and the other kernel and the serial-order entry not at all, and
+     (`ShvcDecoder(device="cuda")` for shvc_2layer) with every launch
+     counter set to 0 just before, require each stream's kernel to have
+     launched once per picture that has an intra job (of both layers) and
+     the other kernel and the serial-order entry not at all, and
      require the per-frame md5 (cropped Y, U, V as uint8, or uint16 above
      8 bits, in output order, as bench.py hashes) to equal the reference
      decoder's sidecar for every frame;
   5. print decode rates (every timed pass is md5-checked too), stage
      breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
-     rate, MC stage 2, combine, kernel, deblock, SAO, crop, fetch) with
+     rate, MC stage 2, combine, kernel, deblock, SAO, crop, the
+     inter-layer upsample, fetch; for shvc_2layer a frame is an
+     enhancement-layer picture and both layers' stages add up) with
      the torch-op stages' byte bounds, kernel times, launch counts, and
      one JSON line with every kernel's record; the last line is the
      device summary.
@@ -62,9 +75,12 @@ STREAMS = {"i_main": "r4a_i_main_832x480.265",
            "main10_4k": "r4a_main10_4k.265",
            "ra_main_1080p": "r4a_ra_main_1080p.265",
            "ra_tiles_1080p": "r4a_ra_tiles_1080p.265",
-           "ra_main10_4k": "r4a_ra_main10_4k.265"}
-KERNEL_OF = {name: "intra_fused" if name == "i_main" else
+           "ra_main10_4k": "r4a_ra_main10_4k.265",
+           "rext_444": "r4a_rext_444_832x480.265",
+           "shvc_2layer": "r4a_shvc_2layer_832x480.265"}
+KERNEL_OF = {name: "intra_fused" if name in ("i_main", "shvc_2layer") else
              "intra_fused_banded" for name in STREAMS}
+TWO_LAYERS = ("shvc_2layer",)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 REPS = 5
 REPEATS = 20        # launches in a row that must give identical planes
@@ -345,16 +361,107 @@ def check_intra_fused_banded(fs, reps=REPS):
     return rec, sum(ms_w) / reps
 
 
-def smoke_decoder(sync_timers=False, keep=None):
-    """A `Decoder(device="cuda")` that notes every picture's number of
-    intra jobs (`jobs`) and whether it has inter blocks (`inter`), keeps
-    the pictures for which keep(fs) holds with their references (`kept`:
-    (fs, refs) pairs in decode order), and, with sync_timers, builds its
-    engine with the per-stage timers on."""
+def check_banded_444(fs, reps=REPS):
+    """Phase 3 on frame 0 of rext_444 (4:4:4: chroma bands as tall as
+    luma bands, chroma TUs up to 32x32 with the smoothing filter): the
+    banded kernel == its plain version on the whole frame, and == the
+    serial-order entry over and over. Returns a dict of what was
+    measured."""
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops.intra_fused import intra_fused_banded_ref
+    k = TorchEngine("cuda").prepare(fs)
+    if k["bounds"] is None or k["vs"] != 0 or k["hs"] != 0:
+        raise AssertionError("rext_444 frame 0: not a banded 4:4:4 plan")
+    m = k["meta"][:, :k["n"]]
+    big_chroma = int(((m[4] > 0) & (m[2] == 3)).sum())
+    filtered_chroma = int(((m[4] > 0) & (m[5] != 0)).sum())
+    if not filtered_chroma:
+        raise AssertionError("rext_444 frame 0: no chroma TU takes the "
+                             "smoothing filter")
+    out_k = _run_kernel(k, True)
+    out_p = [k["luma"].clone(), k["chroma"].clone()]
+    plain_ms = _elapsed_ms(lambda: intra_fused_banded_ref(
+        k["meta"], k["bounds"], k["n"], *out_p, k["res_l"], k["res_c"],
+        k["bd"]))
+    err = _max_err(out_k, out_p)
+    if err != 0:
+        raise AssertionError(f"intra_fused_banded on 4:4:4 meta differs "
+                             f"from its plain version by up to {err}")
+    serial_ms, grid = check_whole_frame("rext_444", fs, k, True)
+    n_levels = fs.native_raw["n_levels"]
+    ms = _kernel_ms(k, True, reps)
+    return {"jobs": k["n"], "n_levels": n_levels,
+            "bands": len(k["bounds"]) - 1, "chroma_32x32_jobs": big_chroma,
+            "filtered_chroma_jobs": filtered_chroma, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "serial_ms": serial_ms,
+            "bound_ms": _bound_ms(fs, k), "us_per_level": ms * 1e3 / n_levels,
+            "grid": grid}
+
+
+def check_upsample(reps=REPS):
+    """Phase 3 for the inter-layer upsample (torch ops): the first
+    base-layer picture of shvc_2layer, decoded on the card, upsampled to
+    the enhancement layer's size == a straightforward evaluation of the
+    tap plans (every output sample's taps gathered and summed in int64).
+    Returns a dict with its time and byte bound (the base-layer picture
+    read once, the upsampled one written once, at the picture's sample
+    size)."""
+    import torch
     from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.models.pipeline import _slice_plane
+    from openhevc_tpu_torch.ops import upsample as up
+    data = first_frames(load_stream("shvc_2layer")[0], 2)
+    bl = Decoder(device="cuda")
+    pic = (bl.decode(data) + bl.flush())[0]
+    el_sps = next(s for s in bl.sps.values()
+                  if (s.width, s.height) != (pic.sps.width, pic.sps.height))
+    planes = [_slice_plane(pic.planes._dev, c, *pic.planes._dims)
+              for c in range(3)]
+    W, H, bd = el_sps.width, el_sps.height, el_sps.bit_depth
+    got = up.upsample_il_frame_dev(planes, W, H, bit_depth=bd)
+    err = 0
+    for c, (src, g) in enumerate(zip(planes, got)):
+        bh, bw = src.shape
+        eh, ew = (H, W) if c == 0 else (H >> 1, W >> 1)
+        hidx, hcoef, vidx, vcoef = up._plans(bw, bh, ew, eh, c == 0, "cuda")
+        # acc[j, i] = sum_a sum_b vcoef[a, j] hcoef[b, i] src[vidx[a, j],
+        # hidx[b, i]]
+        taps = src.long()[vidx.T[:, None, :, None], hidx.T[None, :, None, :]]
+        acc = (taps * vcoef[:, :, 0].T.long()[:, None, :, None]
+               * hcoef.T.long()[None, :, None, :]).sum((2, 3))
+        want = ((acc + (1 << 11)) >> 12).clamp(0, (1 << bd) - 1)
+        if g.shape != (eh, ew):
+            raise AssertionError(f"upsample plane {c}: shape {g.shape}")
+        err = max(err, int((g.long() - want).abs().max()))
+    if err != 0:
+        raise AssertionError(f"upsample differs from the per-sample "
+                             f"evaluation of its tap plan by up to {err}")
+    _sync()
+    ms = sum(_elapsed_ms(lambda: up.upsample_il_frame_dev(
+        planes, W, H, bit_depth=bd)) for _ in range(reps)) / reps
+    sample = 1 if bd <= 8 else 2
+    px_bl = sum(p.numel() for p in planes)
+    px_el = sum(g.numel() for g in got)
+    return {"bl": list(planes[0].shape[::-1]), "el": [W, H],
+            "max_abs_err": err, "ms": ms,
+            "bound_ms": (px_bl + px_el) * sample / HBM_BYTES_PER_S * 1e3}
+
+
+def smoke_decoder(sync_timers=False, keep=None, two_layers=False):
+    """A `Decoder(device="cuda")`, or with two_layers a
+    `ShvcDecoder(device="cuda")` of two such decoders, that notes every
+    picture's number of intra jobs (`jobs`) and whether it has inter
+    blocks (`inter`), keeps the pictures for which keep(fs) holds with
+    their references (`kept`: (fs, refs) pairs in decode order), and,
+    with sync_timers, builds its engine with the per-stage timers on."""
+    from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
     from openhevc_tpu_torch.models.pipeline import TorchEngine
 
     class SmokeDecoder(Decoder):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.jobs, self.inter, self.kept = [], [], []
+
         def _engine(self):
             if self._torch_engine is None:
                 self._torch_engine = TorchEngine(self.device,
@@ -362,21 +469,30 @@ def smoke_decoder(sync_timers=False, keep=None):
             return self._torch_engine
 
         def _reconstruct(self, fs, refs):
-            self.jobs.append(fs.native_pack["n"])
+            self.jobs.append(len(fs.native_raw["ij_meta"]))
             self.inter.append(bool(fs.inter_pbs))
             if keep is not None and keep(fs):
                 self.kept.append((fs, dict(refs)))
             return super()._reconstruct(fs, refs)
 
-    dec = SmokeDecoder(device="cuda")
-    dec.jobs, dec.inter, dec.kept = [], [], []
-    return dec
+    if not two_layers:
+        return SmokeDecoder(device="cuda")
+
+    class SmokeShvc(ShvcDecoder):
+        layer_class = SmokeDecoder
+
+    return SmokeShvc(device="cuda")
 
 
-def decode_all(data, fetch, sync_timers=False):
+def layers(dec):
+    """The single-layer decoders of a smoke decoder."""
+    return [dec.bl, dec.el] if hasattr(dec, "bl") else [dec]
+
+
+def decode_all(data, fetch, sync_timers=False, two_layers=False):
     """Decode the stream; returns (pictures, seconds, decoder).
     fetch=True pulls every picture to the host inside the timed region."""
-    dec = smoke_decoder(sync_timers)
+    dec = smoke_decoder(sync_timers, two_layers=two_layers)
     _sync()
     t0 = time.perf_counter()
     pics = dec.decode(data) + dec.flush()
@@ -392,7 +508,7 @@ def inter_picture(name):
     inter blocks and intra jobs; refs hold the decoded references on the
     card."""
     dec = smoke_decoder(keep=lambda fs: bool(fs.inter_pbs) and
-                        fs.native_pack["n"] > 0)
+                        len(fs.native_raw["ij_meta"]) > 0)
     dec.decode(load_stream(name)[0])
     dec.flush()
     if not dec.kept:
@@ -502,7 +618,7 @@ def stage_bounds(sps, pairs):
     Stage 1 is per reference; the others per picture."""
     from openhevc_tpu_torch.ops.mc import stage1_shape
     H, W = sps.height, sps.width
-    Hc, Wc = H >> 1, W >> 1
+    Hc, Wc = H >> sps.vshift1, W >> sps.hshift1
     px = H * W + 2 * Hc * Wc
     sample = 1 if sps.bit_depth <= 8 else 2
     s1 = 0
@@ -521,22 +637,29 @@ def stage_bounds(sps, pairs):
     return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in b.items()}
 
 
-def breakdown(data):
+def breakdown(data, two_layers=False):
     """Mean ms per frame of each stage: the host parse run alone (native
-    core, parse-ahead threads); then one decode with the engine's
-    per-stage timers on (each stage synchronised, so nothing overlaps):
-    host packing (band sort, filter control data, motion deltas), the
-    one upload, residual, MC stage 1 / stage 2 / combine, meta + level
-    schedule, the intra kernel, deblock, SAO, crop + pack; and the
-    device-to-host fetch of every output. Returns (rows, decoder,
-    pictures)."""
-    t0 = time.perf_counter()
-    nf = len(parse_only(data))
-    out = {"parse": (time.perf_counter() - t0) * 1e3 / nf}
-    pics, _, dec = decode_all(data, fetch=False, sync_timers=True)
-    eng = dec._engine()
-    for key, ms in eng.stage_ms.items():
-        out[key] = ms / nf
+    core, parse-ahead threads; not for two layers, where the enhancement
+    layer's parse needs the base layer's pictures); then one decode with
+    the engine's per-stage timers on (each stage synchronised, so nothing
+    overlaps): host packing (band sort, filter control data, motion
+    deltas), the one upload, residual, MC stage 1 / stage 2 / combine,
+    meta + level schedule, the intra kernel, deblock, SAO, crop + pack,
+    the inter-layer upsample; and the device-to-host fetch of every
+    output. With two layers a frame is an output (enhancement-layer)
+    picture and the stages of both layers add up. Returns (rows,
+    decoder, pictures)."""
+    out = {}
+    if not two_layers:
+        t0 = time.perf_counter()
+        nf = len(parse_only(data))
+        out["parse"] = (time.perf_counter() - t0) * 1e3 / nf
+    pics, _, dec = decode_all(data, fetch=False, sync_timers=True,
+                              two_layers=two_layers)
+    nf = len(pics)
+    for d in layers(dec):
+        for key, ms in d._engine().stage_ms.items():
+            out[key] = out.get(key, 0.0) + ms / nf
     out["prep (host_pack + upload + residual + meta_schedule)"] = sum(
         out.get(key, 0.0) for key in ("host_pack", "upload", "residual",
                                       "meta_schedule"))
@@ -554,17 +677,20 @@ def main_path(name, counters):
     every frame's md5 equal to the sidecar. Returns (number of frames,
     launch counts, decoder)."""
     data, want = load_stream(name)
-    decode_all(first_frames(data, 2), fetch=True)         # warm-up
+    two = name in TWO_LAYERS
+    decode_all(first_frames(data, 4 if two else 2), fetch=True,
+               two_layers=two)                            # warm-up
     for f in counters.values():
         f.launches = 0
-    pics, _, dec = decode_all(data, fetch=False)
+    pics, _, dec = decode_all(data, fetch=False, two_layers=two)
     launches = {n: f.launches for n, f in counters.items()}
     got = hash_pics(pics)
     n_ok = sum(g == w for g, w in zip(got, want))
-    with_jobs = sum(n > 0 for n in dec.jobs)
+    with_jobs = sum(n > 0 for d in layers(dec) for n in d.jobs)
     print(f"phase4 {name} md5 {n_ok}/{len(want)} frames equal the sidecar "
-          f"({len(pics)} decoded, {with_jobs} with intra jobs; launches "
-          f"{launches})", flush=True)
+          f"({len(pics)} decoded, {with_jobs} pictures with intra jobs"
+          f"{' in both layers' if two else ''}; launches {launches})",
+          flush=True)
     if len(pics) != len(want) or n_ok != len(want):
         raise AssertionError(f"{name}: decoded frames differ from the "
                              f"reference md5 sidecar")
@@ -585,23 +711,26 @@ def report(name, nf, dec):
     breakdown (its decode md5-checked too), with the stage-1 cache's hit
     rate and the torch-op stages' byte bounds on inter streams."""
     data, want = load_stream(name)
+    two = name in TWO_LAYERS
     for i in range(2):
         for label, fetch in (("device_resident", False),
                              ("fetched_to_host", True)):
-            pics, dt, _ = decode_all(data, fetch=fetch)
+            pics, dt, _ = decode_all(data, fetch=fetch, two_layers=two)
             if hash_pics(pics) != want:
                 raise AssertionError(f"{name}: timed pass {label}[{i}] "
                                      f"differs from the md5 sidecar")
             print(f"{name} decode_fps_{label}[{i}] {nf / dt}")
-    rows, timed, pics = breakdown(data)
+    rows, timed, pics = breakdown(data, two)
     if hash_pics(pics) != want:
         raise AssertionError(f"{name}: the stage-timed decode differs from "
                              f"the md5 sidecar")
     for k, v in rows.items():
         print(f"{name} stage_ms_per_frame {k} {v}")
-    for pairs, cache in timed._engine()._stage1.items():
-        if cache.misses:
-            refs = (cache.hits + cache.misses) / sum(timed.inter)
+    for d in layers(timed):
+        for pairs, cache in d._engine()._stage1.items():
+            if not cache.misses:
+                continue
+            refs = (cache.hits + cache.misses) / sum(d.inter)
             print(f"{name} mc_stage1_cache {'pair' if pairs else 'tap'} "
                   f"mode: {cache.hits} hits, {cache.misses} misses (hit "
                   f"rate {cache.hits / (cache.hits + cache.misses)}), "
@@ -609,7 +738,17 @@ def report(name, nf, dec):
                   f"{cache.bufs[0].shape[0]} slots, {cache.nbytes()} B")
             for k, v in stage_bounds(pics[0].sps, pairs).items():
                 print(f"{name} stage_bound_ms {k} {v}")
-    print(f"{name} native_slices {dec.stats['native_slices']}", flush=True)
+    if two:
+        # the base-layer picture read once, the upsampled one written once
+        bl_sps = next(iter(timed.bl.ref_pics.values())).sps
+        nbytes = sum(3 * s.width * s.height // 2 *
+                     (1 if s.bit_depth <= 8 else 2)
+                     for s in (bl_sps, pics[0].sps))
+        print(f"{name} stage_bound_ms upsample "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3}")
+    print(f"{name} native_slices "
+          f"{sum(d.stats['native_slices'] for d in layers(dec))}",
+          flush=True)
 
 
 def run():
@@ -648,6 +787,21 @@ def run():
     fs, refs = inter_picture("ra_main10_4k")
     modes["ra_main10_4k"] = check_mc_modes("ra_main10_4k", fs, refs)
     del fs, refs
+    fs = parse_only(first_frames(load_stream("rext_444")[0], 1))[0]
+    r444 = check_banded_444(fs)
+    print(f"phase3 intra_fused_banded == plain == serial-order entry on the "
+          f"whole of rext_444 frame 0 (4:4:4, {r444['jobs']} jobs, "
+          f"{r444['bands']} bands, {r444['n_levels']} levels, "
+          f"{r444['filtered_chroma_jobs']} chroma TUs with the smoothing "
+          f"filter, {r444['chroma_32x32_jobs']} chroma TUs of 32x32): "
+          f"max_abs_err {r444['max_abs_err']}", flush=True)
+    r["max_abs_err"] = max(r["max_abs_err"], r444["max_abs_err"])
+    r["rext_444_frame0"] = r444
+    ups = check_upsample()
+    print(f"phase3 upsample {ups['bl']} -> {ups['el']} == per-sample "
+          f"evaluation of the tap plan: max_abs_err {ups['max_abs_err']}",
+          flush=True)
+    del fs
 
     # ---- phase 4: the main path of each stream ---------------------------
     runs = {name: main_path(name, counters) for name in STREAMS}
@@ -676,6 +830,13 @@ def run():
               f"{json.dumps(r['launches_by_stream'])}")
     print(f"intra_fused_kernel_ms_main10_4k_frame0 {whole_4k_ms} (same "
           f"band-sorted meta and planes)")
+    print(f"intra_fused_banded_kernel_ms_rext_444_frame0 {r444['ms']} "
+          f"({r444['jobs']} jobs, {r444['n_levels']} levels, "
+          f"{r444['us_per_level']} us a level; serial-order entry "
+          f"{r444['serial_ms']} ms; plain {r444['plain_ms']} ms; bound "
+          f"{r444['bound_ms']} ms)")
+    print(f"upsample_ms_per_picture {ups['ms']} ({ups['bl']} -> {ups['el']}, "
+          f"torch ops; bound {ups['bound_ms']} ms)")
     print(f"intra_fused_banded_kernel_ms_prefilled_1080p {pre['ms']} "
           f"(ra_main_1080p POC {pre['poc']}, {pre['jobs']} jobs, "
           f"{pre['n_levels']} levels; plain {pre['plain_ms']} ms; bound "

@@ -577,9 +577,44 @@ class Decoder:
                 np.zeros((h4, w4, 2), np.int32), {})
 
     def _make_il_ref(self, poc, el_sps, sh):
-        """SHVC inter-layer reference: not ported yet."""
-        raise NotImplementedError(
-            "SHVC inter-layer prediction: ROADMAP.md Queue 1 item 8")
+        """Upsampled BL picture of this AU as the inter-layer reference
+        (ff_hevc_set_new_iter_layer_ref behavior; marked long-term with
+        the EL's own POC, hevc_refs.c:748). The BL picture is read where
+        it lies on the device, upsampled there (ops/upsample.py) and kept
+        there as a `TorchPlanes` for the EL's MC: nothing crosses to the
+        host. Also derives the IL reference's upsampled motion field and
+        the BL reference lists' long-term map for TMVP with collocated =
+        IL (mfm; ff_upscale_mv_block, hevc_filter.c:1311)."""
+        bl = self.shvc_bl
+        bl._drain_parse_all()
+        bl_pic = bl.ref_pics.get(poc)
+        if bl_pic is not None and bl_pic.planes is None:
+            bl._flush_pending()             # BL picture still pending
+        if bl_pic is None or bl_pic.planes is None:
+            return None
+        from .models.pipeline import TorchPlanes
+        from .ops.upsample import upsample_il_frame_dev
+        from .ops.upsample_np import upscale_mv_field
+        eng = self._engine()
+        bd, W, H = el_sps.bit_depth, el_sps.width, el_sps.height
+        hs, vs = el_sps.hshift1, el_sps.vshift1
+        with eng._stage("upsample"):
+            up = upsample_il_frame_dev(
+                [eng._ref_plane_dev(bl_pic.planes, c) for c in range(3)],
+                W, H, bit_depth=bd, hs=hs, vs=vs)
+            flat = torch.cat([p.reshape(-1) for p in up]) \
+                .to(torch.uint8 if bd <= 8 else torch.uint16)
+        self._il_planes = {poc: TorchPlanes(flat, H, W, H >> vs, W >> hs)}
+        self._il_motion = None
+        if bl_pic.motion is not None:
+            h4 = (el_sps.ctbs_h << el_sps.log2_ctb) >> 2
+            w4 = (el_sps.ctbs_w << el_sps.log2_ctb) >> 2
+            bl_sps = bl_pic.sps
+            pf, mv, pocg = upscale_mv_field(
+                bl_pic.motion, bl_sps.width, bl_sps.height, W, H, h4, w4,
+                nb_list=2 if sh.slice_type == 0 else 1)
+            self._il_motion = (pf, mv, pocg, bl_pic.motion[3])
+        return (poc, True)
 
     def _rps_keep_set(self, sh, sps, poc):
         """POCs the current picture's RPS retains as references: all
@@ -720,3 +755,52 @@ class Decoder:
         out = self.output + self.dpb
         self.output, self.dpb = [], []
         return out
+
+
+class ShvcDecoder:
+    """2-layer SHVC decode chain (the openHevcWrapper 2-decoder setup,
+    openHevcWrapper.c:95-140): both layers see the full access units;
+    the EL builds its inter-layer reference from the BL's decoded
+    picture of the same POC, on the device. Only EL pictures are
+    returned (the wrapper outputs the highest layer,
+    openHevcWrapper.c:144); outputs are fetched lazily, so a BL picture
+    is never copied to the host."""
+
+    layer_class = Decoder        # the single-layer decoder of each layer
+
+    def __init__(self, device: str = "cuda", nb_threads: int | None = None,
+                 thread_type: int = 3, config=None, mesh=None):
+        """device: torch device of both layers ("cuda" by default; "cpu"
+        only when asked for). mesh: not ported (NotImplementedError)."""
+        kw = dict(device=device, nb_threads=nb_threads,
+                  thread_type=thread_type, config=config, mesh=mesh)
+        self.bl = self.layer_class(**kw)
+        self.el = self.layer_class(layer=1, **kw)
+        self.el.shvc_bl = self.bl
+
+    def set_extradata(self, data: bytes):
+        self.bl.set_extradata(data)
+        self.el.set_extradata(data)
+
+    def decode(self, data: bytes):
+        """Returns newly available EL pictures (the display layer).
+        Layers advance NAL-interleaved: the EL's inter-layer reference
+        is built right after the BL picture of the same AU, matching
+        the wrapper's AU-locked layer stepping (openHevcWrapper.c:95;
+        BL reference retention is RPS-driven, so the EL cannot lag a
+        whole buffer behind)."""
+        nals = [n for n in split_nals(data) if len(n) >= 2]
+        nxt_bl = self.bl._vcl_lookahead(nals)
+        nxt_el = self.el._vcl_lookahead(nals)
+        for i, nal in enumerate(nals):
+            self.bl._next_vcl_continues = nxt_bl[i]
+            self.bl._handle_nal(nal)
+            self.el._next_vcl_continues = nxt_el[i]
+            self.el._handle_nal(nal)
+        self.bl.output = []
+        out, self.el.output = self.el.output, []
+        return out
+
+    def flush(self):
+        self.bl.flush()
+        return self.el.flush()

@@ -4,11 +4,11 @@ Counterpart of the JAX package's models/pipeline.py main path
 (`JaxEngine.reconstruct` -> `_run_fused` -> `_inter_prefill` /
 `_frame_fused`): for each parsed picture
 
-  1. one host->device copy of the native parser's packed arenas, the
-     intra job meta with each job's wavefront level (`fs.native_pack`)
-     and, where the picture has them, the sparse motion deltas
-     (`motion_diff2`), the weighted-prediction grids and the in-loop
-     filters' control tensors (`ops/filters.py::prep_filters`);
+  1. one host->device copy of the packed residual arenas, the intra job
+     meta with each job's wavefront level (`host_pack`) and, where the
+     picture has them, the cross-component scale map, the sparse motion
+     deltas (`motion_diff2`), the weighted-prediction grids and the
+     in-loop filters' control tensors (`ops/filters.py::prep_filters`);
   2. level rebuild from the scan-prefix payload (`_arena_levels`);
   3. dequant + inverse transform per TU size (ops/idct.py) and the slot
      scatter into residual planes (`_residual_acc`);
@@ -32,11 +32,20 @@ Counterpart of the JAX package's models/pipeline.py main path
      that stays on the device as the DPB entry (`TorchPlanes` fetches it
      to the host lazily); later pictures predict from it there.
 
-Pictures outside this path (scaling lists, chroma formats other than
-4:2:0, bit depths above 10 or unequal luma / chroma depths, inter
-pictures with PCM blocks or with no usable reference, a filter pattern
-outside the whole-frame model) raise NotImplementedError naming the
-ROADMAP.md item that brings them.
+Chroma formats 4:2:0, 4:2:2 and 4:4:4 and equal bit depths of 8 to 12
+run this path (the chroma shifts `hs` / `vs` and the depth come from the
+SPS). A picture with scaling lists has no native pack: the Python packer
+(`_res_buckets`, `_pack_arena`, `host_pack`) writes the same byte format
+with the scaling matrices behind each bucket's sideband, and
+`_arena_levels` hands them to the dequant. Cross-component prediction
+(4:4:4) couples the chroma residual to the luma residual once a picture
+(`ccp_scale_map` rides in the upload, `_apply_ccp` runs after step 3), so
+both the inter prefill and the kernel's residual planes see it.
+
+Pictures outside this path (from the Python parser, unequal luma / chroma
+depths, inter pictures with PCM blocks or with no usable reference, a
+filter pattern outside the whole-frame model) raise NotImplementedError
+naming the reason or the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -54,19 +63,170 @@ from ..ops.idct import residual_bucket
 from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
                                derive_meta16, intra_fused,
                                intra_fused_banded, level_schedule,
-                               padded_dims, sort_meta_by_band)
+                               meta6_native, padded_dims, sort_meta_by_band)
 from ..ops.mc import (combine_plane, combine_plane_w, mc_hprefilter,
                       mc_prefilter_pairs, mc_put_core, mc_put_pairs_core,
                       stage1_shape)
-from ..ops.tables import TABLES
+from ..ops.tables import SCAN, SIZES, TABLES
 from ..symbols import FrameSymbols
+
+
+# ---- the Python packer (pictures the native packer leaves out) ------------
+
+def _sm_for(sl, s, mid, tskip):
+    """Per-TU dequant scaling matrices [n, s, s] int32, or None when
+    scaling lists are off. Table row 6 is the flat 16 that transform-skip
+    TUs above 4x4 take (the hevc_cabac.c:1484 gate)."""
+    if sl is None:
+        return None
+    log2s = s.bit_length() - 1
+    table = np.stack([sl.matrix(log2s, m) for m in range(6)] +
+                     [np.full((s, s), 16, np.int32)])
+    return table[np.where(tskip, 6, mid) if log2s > 2 else mid]
+
+
+def _res_buckets(fs: FrameSymbols):
+    """Residual TUs of a natively parsed picture by size: {s: dict(levels
+    [n, s, s], qp, flags [n, 5] (dst, tskip, bypass, rdpcm vertical,
+    rdpcm on), plane, x, y (plane coordinates), sm)} from `fs.native_raw`.
+    The JAX package's function of this name pads every bucket to a
+    geometric row count with far-away coordinates, to bound the number of
+    programs it compiles; nothing here compiles per shape, so exactly
+    the n rows are packed."""
+    raw = fs.native_raw
+    cm, arena = raw["cb_meta"], raw["cb_levels"]
+    sl = fs.active_scaling()
+    out = {}
+    for s in SIZES:
+        sel = np.nonzero(cm[:, 3] == s.bit_length() - 1)[0]
+        if not len(sel):
+            continue
+        gather = cm[sel, 6][:, None] + np.arange(s * s)[None, :]
+        fl = cm[sel, 5]
+        flags = np.stack([(fl & 1) != 0, (fl & 2) != 0, (fl & 4) != 0,
+                          (fl & 16) != 0, (fl & 8) != 0], axis=1)
+        mid = 3 * ((fl & 32) != 0) + cm[sel, 0]
+        out[s] = dict(levels=arena[gather].reshape(-1, s, s).astype(np.int32),
+                      qp=cm[sel, 4].astype(np.int32), flags=flags,
+                      plane=cm[sel, 0].astype(np.int32),
+                      x=cm[sel, 1].astype(np.int32),
+                      y=cm[sel, 2].astype(np.int32),
+                      sm=_sm_for(sl, s, mid, flags[:, 1]))
+    return out
+
+
+def _pack_arena(buckets):
+    """Pack the residual buckets of every size into the upload format
+    `_arena_levels` reads (the native packer's, byte for byte): per TU
+    only the scan-order prefix up to the last significant coefficient, as
+    4-bit biased nibbles (|level| <= 7) or 8-bit biased bytes, whichever
+    costs fewer bytes once escapes are counted; levels outside the stored
+    range ride as int32 (bucket-local raster index, delta) escape pairs
+    that the device adds back. Sideband: 4 int16 a TU (x, y,
+    qp<<7 | flags<<2 | plane, prefix length | byte mode<<12), then the
+    bucket's scaling matrices where the picture has them.
+
+    Returns (arena4 uint8, arena16 int16, esc int32, caps) with caps =
+    ((s, n, has_sm, n_esc), ...) for the four sizes. Exactly the bytes
+    there are: no tail padding of the payload and no padding escape pairs
+    (the JAX package pads both to bound its program count)."""
+    pay, p16, pesc, caps = [], [], [], []
+    for s in SIZES:
+        b = buckets.get(s)
+        if b is None or len(b["qp"]) == 0:
+            caps.append((s, 0, 0, 0))
+            continue
+        cap = len(b["qp"])
+        sm = b.get("sm")
+        ss = s * s
+        scan = SCAN[s]
+        lvs = b["levels"].reshape(cap, ss)[:, scan]    # scan domain
+        nz = lvs != 0
+        cnt = np.where(nz.any(1), ss - np.argmax(nz[:, ::-1], 1),
+                       0).astype(np.int32)             # last significant + 1
+        k = np.arange(ss, dtype=np.int32)[None, :]
+        inpfx = k < cnt[:, None]
+        c4, c8 = np.clip(lvs, -8, 7), np.clip(lvs, -128, 127)
+        esc_nib = ((lvs != c4) & inpfx).sum(1)
+        esc_byt = ((lvs != c8) & inpfx).sum(1)
+        byte_mode = (cnt + 8 * esc_byt) < ((cnt + 1) // 2 + 8 * esc_nib)
+        pay_len = np.where(byte_mode, cnt, (cnt + 1) // 2)
+        # payload byte matrix [cap, ss]: row j's first pay_len[j] bytes
+        B = np.zeros((cap, ss), np.uint8)
+        n4 = (c4 + 8).astype(np.uint8)
+        B[byte_mode] = (c8 + 128).astype(np.uint8)[byte_mode]
+        nib = n4[:, 0::2] | (n4[:, 1::2] << 4)
+        B[~byte_mode, :ss // 2] = nib[~byte_mode]
+        pay.append(B[k < pay_len[:, None]])
+        diff = np.where(inpfx, lvs - np.where(byte_mode[:, None], c8, c4), 0)
+        er, ec = np.nonzero(diff)
+        if len(er):
+            pesc.append(np.stack([er * ss + scan[ec], diff[er, ec]], axis=1)
+                        .astype(np.int32).reshape(-1))
+        caps.append((s, cap, 0 if sm is None else 1, len(er)))
+        fl = b["flags"].astype(np.int32)
+        qpf = (b["qp"].astype(np.int32) << 7) | (fl[:, 0] << 2) | \
+            (fl[:, 1] << 3) | (fl[:, 2] << 4) | (fl[:, 3] << 5) | \
+            (fl[:, 4] << 6) | b["plane"]
+        cw = (cnt | (byte_mode.astype(np.int32) << 12)).astype(np.int16)
+        p16 += [b["x"].astype(np.int16), b["y"].astype(np.int16),
+                qpf.astype(np.int16), cw]
+        if sm is not None:
+            p16.append(sm.reshape(-1).astype(np.int16))
+    arena4 = np.concatenate(pay) if pay else np.zeros(0, np.uint8)
+    if not arena4.size:               # the reader's gather needs a byte
+        arena4 = np.zeros(1, np.uint8)
+    arena16 = np.concatenate(p16) if p16 else np.zeros(1, np.int16)
+    esc = np.concatenate(pesc) if pesc else np.zeros(2, np.int32)
+    return arena4, arena16, esc, tuple(caps)
+
+
+def ccp_scale_map(fs: FrameSymbols):
+    """RExt cross-component prediction: the per-sample res_scale_val map
+    [2, Hc, Wc] int8 over the chroma planes (0 where a TU does not use
+    it), from the natively parsed TU records (flags bits 6-10 of
+    cb_meta hold res_scale_val + 9, 0 for none). None when the PPS flag is
+    off or no TU uses it. 4:4:4 only, the one format that allows it."""
+    if not getattr(fs.pps, "cross_component_prediction_enabled", 0):
+        return None
+    cm = fs.native_raw["cb_meta"]
+    code = cm[:, 5] >> 6
+    sel = np.nonzero((cm[:, 0] > 0) & (code != 0) & ((code & 31) != 9))[0]
+    if not len(sel):
+        return None
+    sps = fs.sps
+    smap = np.zeros((2, sps.height >> sps.vshift1, sps.width >> sps.hshift1),
+                    np.int8)
+    for s in SIZES:
+        rows = sel[cm[sel, 3] == s.bit_length() - 1]
+        if not len(rows):
+            continue
+        ar = np.arange(s)
+        smap[(cm[rows, 0] - 1)[:, None, None],
+             cm[rows, 2][:, None, None] + ar[None, :, None],
+             cm[rows, 1][:, None, None] + ar[None, None, :]] = \
+            ((code[rows] & 31) - 9)[:, None, None]
+    return smap
+
+
+def _apply_ccp(acc_l, acc_c, smap):
+    """Couple the chroma residual to the co-located luma residual:
+    r_c += (res_scale_val * r_l) >> 3 where the map is not 0, with the
+    reference's int16 wrap-around of the sum (hevc.c:1295-1362). acc_l
+    [H, W], acc_c [2, H, W] int32 (4:4:4), smap [2, H, W] int8."""
+    s32 = smap.to(torch.int32)
+    tot = acc_c + ((s32 * acc_l[None]) >> 3)
+    wrapped = ((tot + (1 << 15)) & 0xFFFF) - (1 << 15)
+    return torch.where(s32 != 0, wrapped, acc_c)
 
 
 def _arena_levels(arena4, arena16, escs, caps):
     """Rebuild per-bucket raster levels from the scan-prefix payload
-    (JAX package: pipeline.py _arena_levels; byte format: _pack_arena /
-    native hevc_pack_frame). Yields (s, cap, x, y, qpf, levels
-    [cap, s, s] int32) per non-empty bucket.
+    (JAX package: pipeline.py _arena_levels; byte format: `_pack_arena` /
+    native hevc_pack_frame, one reader for both packers). Yields (s, cap,
+    x, y, qpf, sm, levels [cap, s, s] int32) per non-empty bucket; sm is
+    the bucket's scaling matrices [cap, s, s] (int64) where the picture
+    has scaling lists, else None.
 
     torch indexing neither clamps nor drops out-of-range indices, so the
     payload gather clamps its offsets explicitly (offsets past the last
@@ -78,16 +238,17 @@ def _arena_levels(arena4, arena16, escs, caps):
     segs = []
     off = 0
     for s, cap, has_sm, n_esc in caps:
-        if has_sm:
-            raise NotImplementedError(
-                "scaling-list matrices: ROADMAP.md Queue 1 item 7 (RExt)")
         if cap == 0:
             segs.append(None)
             continue
         x, y, qpf, cw = (a[off + i * cap:off + (i + 1) * cap]
                          for i in range(4))
         off += 4 * cap
-        segs.append((x, y, qpf, cw & 0xFFF, (cw >> 12) & 1))
+        sm = None
+        if has_sm:
+            sm = a[off:off + cap * s * s].reshape(cap, s, s)
+            off += cap * s * s
+        segs.append((x, y, qpf, cw & 0xFFF, (cw >> 12) & 1, sm))
     lens = [torch.where(g[4] == 1, g[3], (g[3] + 1) >> 1)
             for g in segs if g is not None]
     if not lens:
@@ -99,7 +260,7 @@ def _arena_levels(arena4, arena16, escs, caps):
     for (s, cap, _sm, n_esc), seg in zip(caps, segs):
         if seg is None:
             continue
-        x, y, qpf, cnt, mode = seg
+        x, y, qpf, cnt, mode, sm = seg
         offs = all_off[boff:boff + cap]
         boff += cap
         ss = s * s
@@ -117,7 +278,7 @@ def _arena_levels(arena4, arena16, escs, caps):
             keep = e[:, 0] >= 0
             lvf = lvf.index_add(0, torch.where(keep, e[:, 0], 0),
                                 torch.where(keep, e[:, 1], 0))
-        yield s, cap, x, y, qpf, lvf.reshape(cap, s, s).to(torch.int32)
+        yield s, cap, x, y, qpf, sm, lvf.reshape(cap, s, s).to(torch.int32)
 
 
 def _residual_acc(arena4, arena16, escs, *, caps, H, W, Hc, Wc, bd):
@@ -128,12 +289,13 @@ def _residual_acc(arena4, arena16, escs, *, caps, H, W, Hc, Wc, bd):
     (FAR coordinates), are masked to a zero add at slot 0 instead of
     JAX's dropped out-of-range scatter."""
     acc_l = acc_c = None
-    for s, cap, x, y, qpf, lv in _arena_levels(arena4, arena16, escs, caps):
+    for s, cap, x, y, qpf, sm, lv in _arena_levels(arena4, arena16, escs,
+                                                   caps):
         plane = qpf & 3
         qp = qpf >> 7
         r = residual_bucket(lv, qp, (qpf >> 2) & 1 != 0, (qpf >> 3) & 1 != 0,
                             (qpf >> 4) & 1 != 0, (qpf >> 5) & 1 != 0,
-                            (qpf >> 6) & 1 != 0, s=s, bit_depth=bd)
+                            (qpf >> 6) & 1 != 0, s=s, bit_depth=bd, sm=sm)
         inside = (x >= 0) & (y >= 0)
         for c in range(3):
             ph, pw = (H, W) if c == 0 else (Hc, Wc)
@@ -332,26 +494,42 @@ def crop_pack(luma, chroma, H, W, Hc, Wc, bd):
 
 
 def check_slice(fs: FrameSymbols):
-    """Raise NotImplementedError for a picture outside the ported slice."""
-    sps, pps = fs.sps, fs.pps
+    """Raise NotImplementedError for a picture outside the ported path."""
+    sps = fs.sps
     why = None
-    if sps.chroma_format_idc != 1:
-        why = "chroma formats other than 4:2:0: ROADMAP.md Queue 1 item 7"
-    elif sps.bit_depth > 10 or sps.bit_depth_chroma != sps.bit_depth:
-        # both fused kernels take one bit depth for all three planes
-        why = (f"bit depth {sps.bit_depth}/{sps.bit_depth_chroma} (above "
-               f"10, or unequal luma / chroma): ROADMAP.md Queue 1 item 7 "
-               f"(RExt)")
-    elif getattr(pps, "cross_component_prediction_enabled", 0):
-        why = "cross-component prediction: ROADMAP.md Queue 1 item 7"
-    elif fs.native_pack is None:
-        why = ("pictures without a native pack (scaling lists or the "
-               "Python parser): ROADMAP.md Queue 1 item 7")
+    if sps.chroma_format_idc not in (1, 2, 3) or fs.native_raw is None:
+        # monochrome, or more than 24 tile columns / rows: the Python
+        # parser's jobs carry no wavefront level for the kernels' schedule
+        why = ("a picture from the Python parser (monochrome, or more than "
+               "24 tile columns or rows) has no wavefront levels: "
+               "ROADMAP.md Queue 1 item 13")
+    elif sps.bit_depth_chroma != sps.bit_depth:
+        # both fused kernels and the residual take one bit depth for all
+        # three planes
+        why = (f"unequal luma / chroma bit depths {sps.bit_depth}/"
+               f"{sps.bit_depth_chroma}: outside what this decoder "
+               f"supports (equal depths of 8 to 12 bits)")
+    elif not 8 <= sps.bit_depth <= 12:
+        why = (f"bit depth {sps.bit_depth}: outside what this decoder "
+               f"supports (equal depths of 8 to 12 bits)")
     elif fs.inter_pbs and fs.pcm_blocks:
         why = ("an inter picture with PCM blocks: ROADMAP.md Queue 1 "
                "item 9 (packed fallback path)")
     if why:
         raise NotImplementedError(f"POC {fs.poc}: {why}")
+
+
+def host_pack(fs: FrameSymbols) -> dict:
+    """The picture's residual arenas and intra job meta for the upload:
+    the native packer's (`fs.native_pack`) where it ran, else (a picture
+    with scaling lists) the Python packer's over the raw parse arrays, in
+    the same byte format and with the same six-row meta."""
+    if fs.native_pack is not None:
+        return fs.native_pack
+    arena4, arena16, esc, caps = _pack_arena(_res_buckets(fs))
+    meta6 = meta6_native(fs.native_raw)
+    return dict(arena4=arena4, arena16=arena16, esc=esc, caps=caps,
+                meta6=meta6, n=meta6.shape[1])
 
 
 class TorchPlanes:
@@ -635,7 +813,8 @@ class TorchEngine:
                 k["chroma"][0, OY:OY + Hc, OX:OX + Wc],
                 k["chroma"][1, OY:OY + Hc, OX:OX + Wc], *f["fargs"],
                 bd=bd, bdc=bd, cs=f["cs"], do_deblock=f["do_deblock"],
-                do_sao=f["do_sao"], hs=1, vs=1, stage=self._stage)
+                do_sao=f["do_sao"], hs=k["hs"], vs=k["vs"],
+                stage=self._stage)
             with self._stage("crop_pack"):
                 dt = torch.uint8 if bd <= 8 else torch.uint16
                 flat = torch.cat([y.reshape(-1), cb.reshape(-1),
@@ -661,13 +840,17 @@ class TorchEngine:
         bd = sps.bit_depth
         plan = self.fused_plan(fs)
         hl, wl, hc, wc = plan[1]
-        npk = fs.native_pack
-        n = npk["n"]
 
         # ---- host side: everything that rides in the one upload ----------
         with self._stage("host_pack"):
+            npk = host_pack(fs)
+            n = npk["n"]
             host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
             at = {}
+            smap = ccp_scale_map(fs)
+            if smap is not None:
+                at["ccp"] = len(host)
+                host.append(smap)
             if plan[0] == "banded":
                 host[3], bounds = sort_meta_by_band(npk["meta6"], n, plan[2],
                                                     vs, plan[3])
@@ -708,6 +891,8 @@ class TorchEngine:
             acc_l, acc_c = _residual_acc(arena4, arena16, escs,
                                          caps=npk["caps"], H=H, W=W, Hc=Hc,
                                          Wc=Wc, bd=bd)
+            if "ccp" in at and acc_l is not None:
+                acc_c = _apply_ccp(acc_l, acc_c, dev[at["ccp"]])
             res_l = torch.zeros((hl, wl), dtype=torch.int32,
                                 device=self.device)
             res_c = torch.zeros((2, hc, wc), dtype=torch.int32,
@@ -749,7 +934,8 @@ class TorchEngine:
             meta16 = derive_meta16(
                 meta6[:5],
                 sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
-                c444=False, strong=bool(sps.strong_intra_smoothing))
+                c444=sps.chroma_format_idc == 3,
+                strong=bool(sps.strong_intra_smoothing))
         filters = None
         if pff is not None:
             i = at["fargs"]
@@ -759,4 +945,4 @@ class TorchEngine:
         return dict(meta=meta16, n=n, bounds=bounds, order=order,
                     level_bounds=level_bounds, luma=luma, chroma=chroma,
                     res_l=res_l, res_c=res_c, bd=bd, dims=(H, W, Hc, Wc),
-                    filters=filters)
+                    hs=hs, vs=vs, filters=filters)

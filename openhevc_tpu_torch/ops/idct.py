@@ -6,12 +6,19 @@ batched matrix products and elementwise integer arithmetic). Bit-exact
 with the scalar reference ops/transforms_np.py (hevcdsp_template.c).
 
 Exactness of the products: the two transform stages run as float64
-`torch.matmul`. Every operand is an integer (|coeff| < 2^15, |basis| <=
-90) and a dot product has at most 32 terms, so every partial sum is
-below 2^27 and float64 (53-bit mantissa) holds it exactly on the CPU and
-on the card alike; TF32 never applies to float64. torch has no integer
-matmul on CUDA, and an unsplit float32 product would not be exact
-(32 * 2^15 * 90 > 2^24).
+`torch.matmul`. Every operand is an integer: the dequantised coefficient
+is clipped to int16 before stage 1 and the intermediate again before
+stage 2 (|coeff| <= 2^15 whatever the scaling matrix, QP or bit depth),
+|basis| <= 90, and a dot product has at most 32 terms, so every partial
+sum is at most 32 * 2^15 * 90 = 94,371,840 < 2^27 and float64 (53-bit
+mantissa) holds it exactly on the CPU and on the card alike; TF32 never
+applies to float64. torch has no integer matmul on CUDA, and an unsplit
+float32 product would not be exact (32 * 2^15 * 90 > 2^24).
+
+The dequant before it is int64 arithmetic: |level| <= 2^15, a scaling
+factor m <= 255 (16 when flat), a level scale <= 72 and a left shift of
+at most 12 (QP 51 + 24 at 12 bits, // 6) keep |level * m * scale << shift|
+below 2^15 * 2^8 * 2^6.2 * 2^12 < 2^42.
 """
 from __future__ import annotations
 
@@ -47,17 +54,19 @@ def _two_stage(d: torch.Tensor, b: torch.Tensor, bit_depth: int):
 
 
 def residual_bucket(levels, qp, is_dst, tskip, bypass, rdpcm_vert,
-                    has_rdpcm, *, s: int, bit_depth: int):
+                    has_rdpcm, *, s: int, bit_depth: int, sm=None):
     """levels: int [N, s, s] raw levels; qp int [N]; flags bool [N].
-    Dequantises with the flat scaling factor 16 (scaling lists are not
-    ported). Returns the int32 residual [N, s, s]."""
+    sm: the TUs' scaling matrices, int [N, s, s] (scale_m of
+    hevc_cabac.c:1827), or None for the flat factor 16. Returns the int32
+    residual [N, s, s]."""
     log2s = s.bit_length() - 1
     bd_shift = bit_depth + log2s - 5
     lv = levels.to(torch.int64)
     qp = qp.to(torch.int64)
     ls = TABLES["LEVEL_SCALE"].to(lv.device)[qp % 6]
-    # (lv*16*ls << qp//6 + rnd) >> bd_shift; |lv*16*ls << 8| < 2^42
-    d = (lv * 16 * ls[:, None, None]) << (qp // 6)[:, None, None]
+    # (lv*m*ls << qp//6 + rnd) >> bd_shift; |lv*m*ls << 12| < 2^42
+    lvm = lv * 16 if sm is None else lv * sm.to(torch.int64)
+    d = (lvm * ls[:, None, None]) << (qp // 6)[:, None, None]
     d = _clip16((d + (1 << (bd_shift - 1))) >> bd_shift)
 
     dct, dst = _mats(s, lv.device)

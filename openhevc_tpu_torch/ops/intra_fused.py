@@ -121,6 +121,61 @@ def sort_meta_by_band(meta8: np.ndarray, n: int, band_h: int, vs: int,
     return out, bounds
 
 
+def pack_meta(planes, xs, ys, szs, modes, avail_rows) -> np.ndarray:
+    """Decode-order jobs -> the packed [5, n] int16 rows that
+    `derive_meta16` reads (y + OY, x + OX, size_log2-2 | plane<<2 |
+    mode<<4 | av_hi<<10, avail word 0, avail word 1): the Python mirror
+    of the native packer's meta (the JAX package's `pack_meta`).
+    avail_rows: uint8 / bool [n, >= 4 * max size + 1], one flag per
+    reference sample in spec order; availability is uniform over
+    4-sample runs, so one bit per group ships."""
+    n = len(planes)
+    meta = np.zeros((n, 5), np.int64)
+    meta[:, 0] = ys + OY
+    meta[:, 1] = xs + OX
+    packed = (np.log2(szs).astype(np.int64) - 2) | (planes << 2) | \
+        (modes.astype(np.int64) << 4)
+    for s in (4, 8, 16, 32):
+        sel = np.nonzero(szs == s)[0]
+        if not len(sel):
+            continue
+        av = avail_rows[sel, :4 * s + 1] != 0
+        # groups in spec order: left s/2 | corner | top s/2
+        gb = np.concatenate(
+            [av[:, :2 * s].reshape(len(sel), s // 2, 4)[:, :, 0],
+             av[:, 2 * s:2 * s + 1],
+             av[:, 2 * s + 1:4 * s + 1].reshape(len(sel), s // 2, 4)[:, :, 0]],
+            axis=1).astype(np.int64)                        # [n, s + 1]
+        w = (gb << np.arange(s + 1, dtype=np.int64)).sum(1)
+        meta[sel, 3] = w & 0xFFFF
+        meta[sel, 4] = (w >> 16) & 0xFFFF
+        packed[sel] |= ((w >> 32) & 1) << 10
+    meta[:, 2] = packed
+    # int16 on the wire: coordinates < 2^14; the 33-bit availability word
+    # rides as two 16-bit words and one bit of the packed row
+    return np.ascontiguousarray(meta.T.astype(np.int16))
+
+
+def pack_meta_native(raw: dict) -> np.ndarray:
+    """`pack_meta` of the native parser's raw job arrays (`fs.native_raw`:
+    ij_meta columns plane, x, y, size, mode; ij_avail)."""
+    im = raw["ij_meta"]
+    if not len(im):
+        return np.zeros((5, 0), np.int16)
+    return pack_meta(im[:, 0], im[:, 1], im[:, 2], im[:, 3], im[:, 4],
+                     raw["ij_avail"])
+
+
+def meta6_native(raw: dict) -> np.ndarray:
+    """[6, n] int16: `pack_meta_native` plus each job's wavefront level
+    (ij_meta column 6) as the sixth row, as the native packer ships it."""
+    level = raw["ij_meta"][:, 6]
+    if len(level) and not 1 <= int(level.min()) <= int(level.max()) <= 32767:
+        raise ValueError("intra job levels outside 1..32767")
+    return np.concatenate([pack_meta_native(raw),
+                           level.astype(np.int16)[None, :]])
+
+
 def derive_meta16(meta8: torch.Tensor, sdis: bool, c444: bool,
                   strong: bool) -> torch.Tensor:
     """[5, npad] int16 packed rows (y, x, sl|plane<<2|mode<<4|av_hi<<10,

@@ -332,11 +332,22 @@ def test_main10_output_stays_on_device_as_uint16():
 
 @pytest.mark.parametrize("bd,bdc", [(12, 12), (10, 8), (8, 10), (16, 16)])
 def test_check_slice_depths_outside_the_slice(bd, bdc):
+    """Equal depths of 8 to 12 bits are inside the port now (12 / 12
+    passes); unequal luma / chroma depths and depths above 12 stay
+    outside, and the message names the reason, not a ROADMAP item that
+    would bring them."""
     from openhevc_tpu_torch.models.pipeline import check_slice
     sps = SimpleNamespace(chroma_format_idc=1, bit_depth=bd,
                           bit_depth_chroma=bdc)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        check_slice(SimpleNamespace(sps=sps, pps=None, poc=0))
+    fs = SimpleNamespace(sps=sps, pps=None, poc=0, native_raw={},
+                         inter_pbs=[], pcm_blocks=[])
+    if (bd, bdc) == (12, 12):
+        check_slice(fs)
+        return
+    what = "unequal luma / chroma" if bd != bdc else f"bit depth {bd}"
+    with pytest.raises(NotImplementedError, match=what) as e:
+        check_slice(fs)
+    assert "Queue 1 item" not in str(e.value)
 
 
 # ---- the CUDA kernel (needs a card) ------------------------------------

@@ -1,8 +1,9 @@
 """The whole slice: openhevc_tpu_torch `Decoder(device="cpu")` vs the
 encoder's reconstruction and the JAX package's decoders on small intra
-streams (WPP and PCM included), and NotImplementedError for pictures
-outside the slice (inter and filtered streams: tests/test_torch_inter.py,
-tests/test_torch_filters.py). Tolerance: none (8-bit samples)."""
+streams (WPP and PCM included), and NotImplementedError for what lies
+outside the port (inter and filtered streams: tests/test_torch_inter.py,
+tests/test_torch_filters.py; range extensions: tests/test_torch_rext.py;
+two layers: tests/test_torch_shvc.py). Tolerance: none (8-bit samples)."""
 import numpy as np
 import pytest
 import torch
@@ -64,19 +65,32 @@ def test_outputs_stay_on_device_until_fetched():
     assert len(pic.planes) == 3 and pic.planes[0].shape == (64, 64)
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(scaling_list="default", deblock=True), "scaling lists"),
-    (dict(scaling_list="default", sao=True), "Queue 1 item 7"),
-    (dict(bit_depth=12), "bit depth 12/12"),
+@pytest.mark.parametrize("case,what", [
+    ("inter_pcm", "PCM blocks.*Queue 1 item 9"),
+    ("python_parser", "Python parser.*Queue 1 item 13"),
+    ("shvc_mesh", "multi-device waves.*Queue 1 item 11"),
 ])
-def test_outside_the_slice_raises(kw, what):
-    """In-loop filters are inside the slice now (tests/
-    test_torch_filters.py); scaling lists and bit depths above 10 are
-    not, with or without filters."""
-    from openhevc_tpu_torch.decoder import Decoder
-    data, _ = encode(64, 64, n=1, seed=1, qp=30, ctb_log2=4, **kw)
+def test_outside_the_slice_raises(case, what):
+    """Scaling lists and 12 bits decode now (tests/test_torch_rext.py
+    holds the three streams this test used to see refused). What still
+    lies outside names its reason: an inter picture with PCM blocks, a
+    picture from the Python parser (no wavefront levels), a mesh."""
+    from types import SimpleNamespace
+    from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
     with pytest.raises(NotImplementedError, match=what):
-        _decode(Decoder(device="cpu"), data)
+        if case == "shvc_mesh":
+            ShvcDecoder(device="cpu", mesh=object())
+        elif case == "python_parser":
+            data, _ = encode(64, 64, n=1, seed=1, qp=30, ctb_log2=4)
+            dec = Decoder(device="cpu")
+            dec.native_parse = False
+            _decode(dec, data)
+        else:
+            from test_torch_inter import _captured, stream
+            fs, refs = _captured(stream("p"))[0]
+            fs.pcm_blocks = [SimpleNamespace(x=0, y=0, size=8)]
+            TorchEngine("cpu").reconstruct(fs, refs)
 
 
 def test_unported_entry_points_raise():

@@ -4,8 +4,10 @@ one GPU (openhevc_tpu_torch; needs a CUDA device):
 
     python3 tools/profile_torch_prep.py [--frames 3]
 
-For the first frames of each bench stream (decode order; an inter
-picture is prepared with its decoded references on the card) it prints
+For the first frames of each of chip_smoke.py's seven bench streams
+(decode order; an inter picture is prepared with its decoded references
+on the card, an enhancement-layer picture with its inter-layer
+reference) it prints
 (a) the synchronised host-clock time of prepare() and of its parts run
 alone: the band sort on the host, the in-loop filters' control data
 (`prep_filters`, with its boundary strengths alone) and the motion
@@ -50,11 +52,15 @@ def main() -> int:
         return (time.perf_counter() - t0) * 1e3, out
 
     def pictures(name):
-        """(fs, refs) of the stream's first nframes pictures."""
-        dec = cs.smoke_decoder(keep=lambda fs: True)
-        dec.decode(cs.first_frames(cs.load_stream(name)[0], nframes))
+        """(fs, refs) of the stream's first nframes pictures (of both
+        layers of a two-layer stream's first nframes access units, the
+        base layer's first)."""
+        two = name in cs.TWO_LAYERS
+        dec = cs.smoke_decoder(keep=lambda fs: True, two_layers=two)
+        dec.decode(cs.first_frames(cs.load_stream(name)[0],
+                                   nframes * (2 if two else 1)))
         dec.flush()
-        return dec.kept
+        return [kept for d in cs.layers(dec) for kept in d.kept]
 
     for name in cs.STREAMS:
         fss = pictures(name)
@@ -68,7 +74,9 @@ def main() -> int:
             return out
 
         for fs, refs in fss:
-            sps, npk = fs.sps, fs.native_pack
+            sps = fs.sps
+            npk = add("host_pack (native pack, else the Python packer)",
+                      lambda: pl.host_pack(fs))
             H, W = sps.height, sps.width
             Hc, Wc = H >> sps.vshift1, W >> sps.hshift1
             plan = eng.fused_plan(fs)
@@ -92,7 +100,8 @@ def main() -> int:
                 a4, a16, esc, caps=npk["caps"], H=H, W=W, Hc=Hc, Wc=Wc,
                 bd=sps.bit_depth))
             add("derive_meta16", lambda: ifm.derive_meta16(
-                m6[:5], False, False, bool(sps.strong_intra_smoothing)))
+                m6[:5], False, sps.chroma_format_idc == 3,
+                bool(sps.strong_intra_smoothing)))
             add("level_schedule", lambda: ifm.level_schedule(
                 m6[5], npk["n"], fs.native_raw["n_levels"]))
         for key, ms in parts.items():
