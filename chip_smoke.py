@@ -49,24 +49,44 @@ out). Phases (each one fails the run with a non-zero exit):
      require the per-frame md5 (cropped Y, U, V as uint8, or uint16 above
      8 bits, in output order, as bench.py hashes) to equal the reference
      decoder's sidecar for every frame;
-  5. print decode rates (every timed pass is md5-checked too), stage
+  5. (new in this slice) the routes off the main path, each driven with
+     every launch counter set to 0 just before and read just after, each
+     md5-exact against the sidecar (by POC):
+     (i) no band plan: `band_plan` made unavailable, all 3 frames of
+         main10_4k and the first RA_4K_PICTURES pictures of ra_main10_4k
+         (inter + filters at 4K) take the whole-frame kernel (one launch
+         a picture with jobs, 0 banded), which is timed on 4K frame 0 in
+         this layout beside the banded kernel;
+     (ii) the Python parser: the first frames of i_main with
+         `native_parse=False` (one whole-frame launch a frame; one
+         frame's parse timed first sets how many fit PY_PARSE_SECONDS);
+     (iii) host-scheduled filters: the first HOST_FILTER_PICTURES of
+         ra_tiles_1080p with `prep_filters` giving up on every picture
+         (banded launches as on the main path; the host_filters stage
+         timed);
+     (iv) the CLI: `python3 -m openhevc_tpu_torch -i ... -o ... -n` as a
+         subprocess on i_main as Annex-B and as an MP4 written by the
+         port's `container.mux_mp4`, every frame of the .yuv md5-exact;
+  6. print decode rates (every timed pass is md5-checked too), stage
      breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
      rate, MC stage 2, combine, kernel, deblock, SAO, crop, the
      inter-layer upsample, fetch; for shvc_2layer a frame is an
      enhancement-layer picture and both layers' stages add up) with
-     the torch-op stages' byte bounds, kernel times, launch counts, and
-     one JSON line with every kernel's record; the last line is the
-     device summary.
+     the torch-op stages' byte bounds, kernel times, launch counts (on
+     the main path and per route), and one JSON line with every kernel's
+     record; the last line is the device summary.
 
 Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -85,6 +105,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 REPS = 5
 REPEATS = 20        # launches in a row that must give identical planes
 PLAIN_BANDS = 2     # bands of 4K frame 0 held to the plain version
+RA_4K_PICTURES = 5  # pictures of ra_main10_4k on the no-band-plan route
+HOST_FILTER_PICTURES = 3    # pictures of ra_tiles_1080p, host filters
+PY_PARSE_SECONDS = 40       # budget of the Python-parser phase's decode
+POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
+FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
 
 
 def load_stream(name):
@@ -119,7 +144,25 @@ def hash_pics(pics):
     return hs
 
 
-def parse_only(data: bytes):
+def n_jobs(fs) -> int:
+    """Intra jobs of a parsed picture, from either parser."""
+    if fs.native_raw is not None:
+        return len(fs.native_raw["ij_meta"])
+    return len(fs.intra_jobs)
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """obj.name = value inside the block (a route forced for a phase)."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def parse_only(data: bytes, native_parse=True):
     """Parsed FrameSymbols of every picture (no reconstruction)."""
     from openhevc_tpu_torch.decoder import Decoder
 
@@ -127,7 +170,7 @@ def parse_only(data: bytes):
         def _reconstruct(self, fs, refs):
             self.parsed.append(fs)
 
-    d = _Parse(device="cuda")
+    d = _Parse(device="cuda", native_parse=native_parse)
     d.parsed = []
     d.decode(data)
     d.flush()
@@ -447,13 +490,15 @@ def check_upsample(reps=REPS):
             "bound_ms": (px_bl + px_el) * sample / HBM_BYTES_PER_S * 1e3}
 
 
-def smoke_decoder(sync_timers=False, keep=None, two_layers=False):
-    """A `Decoder(device="cuda")`, or with two_layers a
-    `ShvcDecoder(device="cuda")` of two such decoders, that notes every
-    picture's number of intra jobs (`jobs`) and whether it has inter
-    blocks (`inter`), keeps the pictures for which keep(fs) holds with
-    their references (`kept`: (fs, refs) pairs in decode order), and,
-    with sync_timers, builds its engine with the per-stage timers on."""
+def smoke_decoder(sync_timers=False, keep=None, two_layers=False,
+                  native_parse=True):
+    """A `Decoder(device="cuda", native_parse=native_parse)`, or with
+    two_layers a `ShvcDecoder(device="cuda")` of two such decoders, that
+    notes every picture's number of intra jobs (`jobs`) and whether it
+    has inter blocks (`inter`), keeps the pictures for which keep(fs)
+    holds with their references (`kept`: (fs, refs) pairs in decode
+    order), and, with sync_timers, builds its engine with the per-stage
+    timers on."""
     from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
     from openhevc_tpu_torch.models.pipeline import TorchEngine
 
@@ -469,14 +514,14 @@ def smoke_decoder(sync_timers=False, keep=None, two_layers=False):
             return self._torch_engine
 
         def _reconstruct(self, fs, refs):
-            self.jobs.append(len(fs.native_raw["ij_meta"]))
+            self.jobs.append(n_jobs(fs))
             self.inter.append(bool(fs.inter_pbs))
             if keep is not None and keep(fs):
                 self.kept.append((fs, dict(refs)))
             return super()._reconstruct(fs, refs)
 
     if not two_layers:
-        return SmokeDecoder(device="cuda")
+        return SmokeDecoder(device="cuda", native_parse=native_parse)
 
     class SmokeShvc(ShvcDecoder):
         layer_class = SmokeDecoder
@@ -489,10 +534,12 @@ def layers(dec):
     return [dec.bl, dec.el] if hasattr(dec, "bl") else [dec]
 
 
-def decode_all(data, fetch, sync_timers=False, two_layers=False):
+def decode_all(data, fetch, sync_timers=False, two_layers=False,
+               native_parse=True):
     """Decode the stream; returns (pictures, seconds, decoder).
     fetch=True pulls every picture to the host inside the timed region."""
-    dec = smoke_decoder(sync_timers, two_layers=two_layers)
+    dec = smoke_decoder(sync_timers, two_layers=two_layers,
+                        native_parse=native_parse)
     _sync()
     t0 = time.perf_counter()
     pics = dec.decode(data) + dec.flush()
@@ -685,6 +732,8 @@ def main_path(name, counters):
     pics, _, dec = decode_all(data, fetch=False, two_layers=two)
     launches = {n: f.launches for n, f in counters.items()}
     got = hash_pics(pics)
+    POC_ORDER[name] = [p.poc for p in pics]
+    FRAME_BYTES[name] = sum(c.nbytes for c in pics[0].cropped())
     n_ok = sum(g == w for g, w in zip(got, want))
     with_jobs = sum(n > 0 for d in layers(dec) for n in d.jobs)
     print(f"phase4 {name} md5 {n_ok}/{len(want)} frames equal the sidecar "
@@ -751,8 +800,174 @@ def report(name, nf, dec):
           flush=True)
 
 
+# ---- phase 5: the routes off the main path ----------------------------------
+
+def route_decode(name, data, counters, kernel, label, **kw):
+    """Decode `data` (stream `name`, or its first pictures) on one route
+    with every launch counter set to 0 just before; require every
+    picture's md5 to equal the sidecar's (matched by POC where the
+    stream's POCs are unique, else, with an IDR a frame, in output
+    order: a cut of such a stream is a prefix of its output), and
+    `kernel` to have launched once per picture with an intra job and no
+    other kernel at all. kw goes to decode_all. Returns (pictures,
+    seconds, decoder, launches)."""
+    order, want = POC_ORDER[name], load_stream(name)[1]
+    for f in counters.values():
+        f.launches = 0
+    pics, dt, dec = decode_all(data, fetch=False, **kw)
+    launches = {n: f.launches for n, f in counters.items()}
+    got = hash_pics(pics)
+    if len(set(order)) == len(order):
+        by_poc = dict(zip(order, want))
+        want = [by_poc.get(p.poc) for p in pics]
+    n_ok = sum(g == w for g, w in zip(got, want))
+    with_jobs = sum(n > 0 for n in dec.jobs)
+    print(f"phase5 {label}: {name} md5 {n_ok}/{len(pics)} pictures equal "
+          f"the sidecar (POCs {[p.poc for p in pics]}, {with_jobs} with "
+          f"intra jobs; launches {launches})", flush=True)
+    if not pics or n_ok != len(pics):
+        raise AssertionError(f"{label}: {name} differs from the md5 sidecar")
+    need = {n: with_jobs if n == kernel else 0 for n in counters}
+    if launches != need or with_jobs == 0:
+        raise AssertionError(f"{label}: {name} launched {launches}, not "
+                             f"{need}")
+    return pics, dt, dec, launches
+
+
+def check_no_band_plan(counters, banded_4k_ms, reps=REPS):
+    """Phase 5 (i): with `band_plan` unavailable (the route of 4:2:2 UHD
+    at CTB 64, 4:4:4 from 2440 wide and 8K 4:2:0), all of main10_4k and
+    the first RA_4K_PICTURES of ra_main10_4k (inter + filters at 4K)
+    take the whole-frame kernel on global-memory planes, md5-exact; the
+    kernel is timed on 4K frame 0 in this layout (meta in decode order)
+    beside the banded kernel on the same frame."""
+    from openhevc_tpu_torch.models import pipeline
+    out = {"launches": {}}
+    with patched(pipeline, "band_plan", lambda *a: None):
+        for name, k in (("main10_4k", None),
+                        ("ra_main10_4k", RA_4K_PICTURES)):
+            data = load_stream(name)[0]
+            if k is not None:
+                data = first_frames(data, k)
+            pics, dt, _d, launches = route_decode(
+                name, data, counters, "intra_fused", "no band plan")
+            if k is None and len(pics) != len(POC_ORDER[name]):
+                raise AssertionError(f"no band plan: {name} decoded "
+                                     f"{len(pics)} frames")
+            out["launches"][name] = launches["intra_fused"]
+            out[f"{name}_decode_fps"] = len(pics) / dt
+        fs = parse_only(first_frames(load_stream("main10_4k")[0], 1))[0]
+        k = pipeline.TorchEngine("cuda").prepare(fs)
+    if k["bounds"] is not None:
+        raise AssertionError("no band plan: 4K frame 0 planned banded")
+    ms = _kernel_ms(k, False, reps)
+    out.update(ms=ms, bound_ms=_bound_ms(fs, k), banded_ms=banded_4k_ms,
+               jobs=k["n"], planes=[list(k["luma"].shape),
+                                    list(k["chroma"].shape)])
+    print(f"phase5 no band plan: intra_fused {ms} ms on main10_4k frame 0 "
+          f"in the whole-frame layout ({k['n']} jobs, planes "
+          f"{out['planes']}); intra_fused_banded {banded_4k_ms} ms on the "
+          f"same frame (phase 3)", flush=True)
+    return out
+
+
+def check_python_parser(counters):
+    """Phase 5 (ii): the first frames of i_main through
+    `Decoder(native_parse=False)`: every slice parsed in Python, the
+    levels computed from its objects, one whole-frame launch a frame,
+    md5-exact. One frame's parse is timed first and sets how many frames
+    fit PY_PARSE_SECONDS."""
+    data, want = load_stream("i_main")
+    t0 = time.perf_counter()
+    parse_only(first_frames(data, 1), native_parse=False)
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    n = max(2, min(len(want), int(PY_PARSE_SECONDS * 1e3 / parse_ms)))
+    pics, dt, dec, launches = route_decode(
+        "i_main", first_frames(data, n), counters, "intra_fused",
+        "python parser", native_parse=False)
+    if dec.stats["python_slices"] != n or dec.stats["native_slices"]:
+        raise AssertionError(f"python parser: {dec.stats}")
+    return {"frames": n, "parse_ms_per_frame": parse_ms,
+            "decode_ms_per_frame": dt * 1e3 / n,
+            "launches": launches["intra_fused"]}
+
+
+def check_host_filters(counters):
+    """Phase 5 (iii): the first HOST_FILTER_PICTURES of ra_tiles_1080p
+    with `prep_filters` giving up on every picture: each is fetched
+    unfiltered, filtered on the host on the reference's CTB schedule and
+    read back as a reference from there, md5-exact; the stages are
+    timed."""
+    from openhevc_tpu_torch.models import pipeline
+    data = first_frames(load_stream("ra_tiles_1080p")[0],
+                        HOST_FILTER_PICTURES)
+    with patched(pipeline, "prep_filters", lambda fs: None):
+        pics, _dt, dec, launches = route_decode(
+            "ra_tiles_1080p", data, counters, "intra_fused_banded",
+            "host filters", sync_timers=True)
+    st = dec._engine().stage_ms
+    if "host_filters" not in st or "deblock" in st or \
+            any(p.planes.device_filtered for p in pics):
+        raise AssertionError(f"host filters: stages {sorted(st)}")
+    return {"pictures": len(pics),
+            "stage_ms_per_picture": {k: v / len(pics)
+                                     for k, v in st.items()},
+            "launches": launches["intra_fused_banded"]}
+
+
+def check_cli():
+    """Phase 5 (iv): `python3 -m openhevc_tpu_torch -i <stream> -o
+    <yuv> -n` on the card, on i_main as Annex-B and as an MP4 written by
+    the port's `container.mux_mp4`; every frame of the .yuv must hash to
+    the sidecar's md5."""
+    from openhevc_tpu_torch.bitstream.au_parser import AuParser
+    from openhevc_tpu_torch.container import mux_mp4
+    from openhevc_tpu_torch.container.mp4 import (annexb_to_length_prefixed,
+                                                  make_hvcc)
+    from openhevc_tpu_torch.decoder import split_nals
+    data, want = load_stream("i_main")
+    sps = parse_only(first_frames(data, 1))[0].sps
+    p = AuParser()
+    aus = p.feed(data) + p.flush()
+    ps = {t: n for n in split_nals(aus[0])
+          if (t := (n[0] >> 1) & 0x3F) in (32, 33, 34)}
+    mp4 = mux_mp4([annexb_to_length_prefixed(au) for au in aus],
+                  make_hvcc(ps[32], ps[33], ps[34]), sps.width, sps.height)
+    fb = FRAME_BYTES["i_main"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, blob in (("265", data), ("mp4", mp4)):
+            src = os.path.join(tmp, f"in.{label}")
+            yuv = os.path.join(tmp, f"out_{label}.yuv")
+            with open(src, "wb") as f:
+                f.write(blob)
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "openhevc_tpu_torch",
+                                "-i", src, "-o", yuv, "-n"], cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=600)
+            secs = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"CLI on .{label} exited "
+                                     f"{r.returncode}: {r.stderr[-2000:]}")
+            raw = open(yuv, "rb").read()
+            got = [hashlib.md5(raw[i:i + fb]).hexdigest()
+                   for i in range(0, len(raw), fb)]
+            n_ok = sum(g == w for g, w in zip(got, want))
+            print(f"phase5 CLI .{label}: md5 {n_ok}/{len(want)} frames of "
+                  f"the .yuv equal the sidecar ({secs} s for the process; "
+                  f"{r.stdout.strip()})", flush=True)
+            if len(got) != len(want) or n_ok != len(want):
+                raise AssertionError(f"CLI on .{label}: the .yuv differs "
+                                     f"from the md5 sidecar")
+            out[label] = {"frames": n_ok, "process_seconds": secs}
+    return out
+
+
 def run():
-    """Phases 3-5 on the card; returns the kernel records."""
+    """Phases 3-6 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
@@ -811,7 +1026,23 @@ def run():
             if KERNEL_OF[name] == kernel}
         r["launches"] = sum(r["launches_by_stream"].values())
 
-    # ---- phase 5: report ---------------------------------------------------
+    # ---- phase 5: the routes off the main path ---------------------------
+    nbp = check_no_band_plan(counters, recs["intra_fused_banded"]["ms"])
+    py = check_python_parser(counters)
+    hf = check_host_filters(counters)
+    cli = check_cli()
+    recs["intra_fused"]["launches_by_route"] = {
+        "main_path": recs["intra_fused"]["launches"],
+        "no_band_plan": sum(nbp["launches"].values()),
+        "python_parser": py["launches"], "host_filters": 0}
+    recs["intra_fused_banded"]["launches_by_route"] = {
+        "main_path": recs["intra_fused_banded"]["launches"],
+        "no_band_plan": 0, "python_parser": 0,
+        "host_filters": hf["launches"]}
+    recs["intra_fused"]["main10_4k_frame0_whole_layout"] = {
+        k: nbp[k] for k in ("ms", "bound_ms", "jobs")}
+
+    # ---- phase 6: report ---------------------------------------------------
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
     for name, by_mode in modes.items():
@@ -841,6 +1072,24 @@ def run():
           f"(ra_main_1080p POC {pre['poc']}, {pre['jobs']} jobs, "
           f"{pre['n_levels']} levels; plain {pre['plain_ms']} ms; bound "
           f"{pre['bound_ms']} ms)", flush=True)
+    print(f"no_band_plan intra_fused_kernel_ms_main10_4k_frame0 {nbp['ms']} "
+          f"(whole-frame layout; bound {nbp['bound_ms']} ms; banded kernel "
+          f"{nbp['banded_ms']} ms on the same frame); decode fps "
+          f"main10_4k {nbp['main10_4k_decode_fps']}, ra_main10_4k first "
+          f"{RA_4K_PICTURES} pictures {nbp['ra_main10_4k_decode_fps']}; "
+          f"launches {json.dumps(nbp['launches'])}")
+    print(f"python_parser parse_ms_per_frame {py['parse_ms_per_frame']} "
+          f"(i_main frame 0); decode_ms_per_frame "
+          f"{py['decode_ms_per_frame']} over {py['frames']} frames")
+    for k, v in hf["stage_ms_per_picture"].items():
+        print(f"host_filters stage_ms_per_picture {k} {v} (ra_tiles_1080p, "
+              f"first {hf['pictures']} pictures)")
+    for label, row in cli.items():
+        print(f"cli .{label} {row['frames']} frames md5-exact, "
+              f"{row['process_seconds']} s for the process")
+    for r in recs.values():
+        print(f"{r['name']}_launches_by_route "
+              f"{json.dumps(r['launches_by_route'])}", flush=True)
     return list(recs.values())
 
 

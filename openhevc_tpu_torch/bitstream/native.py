@@ -147,7 +147,7 @@ def _pack_native(lib, o, cb_meta, cb_levels, ij_meta, ij_avail, sps):
     [5, npad] intra meta in the JAX package's _frame_fused upload layout
     (no scaling lists). The port adds each job's wavefront level
     (ij_meta column 6) as a sixth row of the same buffer: `meta` is the
-    first five rows, `meta6` all six."""
+    first five rows, `meta6` all six; `n_levels` is the highest level."""
     # worst case payload: one byte per level cell (byte mode)
     a4 = np.empty(o.lvl_used + 64, np.uint8)
     a16 = np.empty(4 * (o.n_cb + o.n_cb // 2) + 4 * 4 * 528 + 16,
@@ -190,7 +190,8 @@ def _pack_native(lib, o, cb_meta, cb_levels, ij_meta, ij_avail, sps):
                    for i in range(4)),
         meta=meta6[:5],
         meta6=meta6,
-        n=n)
+        n=n,
+        n_levels=int(level.max()) if n else 0)
 
 
 def parse_slice_native(rbsp: bytes, sps, pps, sh, nal_type: int, poc: int,

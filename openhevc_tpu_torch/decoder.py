@@ -71,10 +71,14 @@ class Decoder:
                  engine: str = "torch",
                  temporal_layer: int | None = None, strict: bool = False,
                  nb_threads: int | None = None, thread_type: int = 3,
-                 config=None):
+                 config=None, native_parse: bool = True):
         """device: torch device of the reconstruction ("cuda" by default;
         "cpu" only when asked for — there is no fallback).
         layer: nuh_layer_id this decoder handles.
+        native_parse: parse slices with the native C++ core (built at
+        first use); False sends every slice to the Python parser
+        (`SliceDataParser`). With True, a slice the core refuses is
+        parsed in Python all the same (counted in stats["python_slices"]).
         mesh / engine != "torch": not ported (NotImplementedError).
         config: DecoderConfig — the single typed knob home (SURVEY §5);
         keyword arguments above override its fields for compatibility."""
@@ -100,6 +104,7 @@ class Decoder:
         self.device = dev
         self.engine = config.engine
         self.layer = layer
+        self.shvc_bl: Decoder | None = None   # the BL decoder of an EL
         # sub-layer selection: VCL NALs with temporal_id above this are
         # dropped before parse (the AVOption "temporal-layer-id",
         # openHevcWrapper.c:442 -> hevc.c decode_nal_unit gating)
@@ -108,10 +113,11 @@ class Decoder:
         # default mode conceals (missing references, parse fallbacks)
         self.strict = config.strict
         # host parse through the native C++ core (built at first use);
-        # the Python parser remains only for pictures it cannot take
-        from .bitstream.native import ensure_built
-        ensure_built()
-        self.native_parse = True
+        # the Python parser takes the slices it cannot
+        if native_parse:
+            from .bitstream.native import ensure_built
+            ensure_built()
+        self.native_parse = native_parse
         self.vps = {}
         self.sps = {}
         self.pps = {}
@@ -298,7 +304,8 @@ class Decoder:
             if is_idr(nal_type):
                 self.ref_pics = {}
             il = None
-            if self.layer > 0 and sh.inter_layer_pred:
+            if self.layer > 0 and sh.inter_layer_pred and \
+                    self.shvc_bl is not None:
                 il = self._make_il_ref(poc, sps, sh)
             ref_list = self._build_ref_lists(sh, sps, poc, il=il)
             # collocated picture motion for TMVP (hevc_refs.c)
@@ -401,10 +408,21 @@ class Decoder:
                     ss_starts=ss_starts, cm=cm,
                     pt=self._parse_threads):
                 cmv = cm() if callable(cm) else cm
-                return parse_slice_native(
-                    rbsp, sps, pps, sh, nal_type, poc, ref_list=rl,
-                    ss_starts=ss_starts, col_motion=cmv,
-                    parse_threads=pt)
+                try:
+                    return parse_slice_native(
+                        rbsp, sps, pps, sh, nal_type, poc, ref_list=rl,
+                        ss_starts=ss_starts, col_motion=cmv,
+                        parse_threads=pt)
+                except ValueError:
+                    # the native core refused the slice (a capacity or
+                    # feature edge): the Python parser takes it, here in
+                    # the worker
+                    self.stats["python_slices"] += 1
+                    self.stats["native_slices"] -= 1
+                    p = SliceDataParser(rbsp, sps, pps, sh, nal_type,
+                                        poc, ref_list=rl, col_motion=cmv,
+                                        start_ts=0, slice_no=0)
+                    return p.decode()
 
             fut = self._parse_executor.submit(job)
             self.stats["native_slices"] += 1

@@ -42,10 +42,24 @@ with the scaling matrices behind each bucket's sideband, and
 (`ccp_scale_map` rides in the upload, `_apply_ccp` runs after step 3), so
 both the inter prefill and the kernel's residual planes see it.
 
-Pictures outside this path (from the Python parser, unequal luma / chroma
-depths, inter pictures with PCM blocks or with no usable reference, a
-filter pattern outside the whole-frame model) raise NotImplementedError
-naming the reason or the ROADMAP.md item that brings them.
+Every picture the JAX package's decoder takes runs this path, with the
+route chosen by what the picture is, before any launch:
+  - a picture of the Python parser (`fs.native_raw is None`) is packed
+    from its objects (`_res_buckets_objects`, `meta6_objects`: each
+    job's wavefront level by the native parser's rule);
+  - an inter picture none of whose references is at hand starts from
+    zeros (its inter blocks stay 0, as in the JAX package's packed
+    path), and PCM samples are written over whatever the starting planes
+    hold;
+  - a frame with no band plan takes the whole-frame kernel
+    (`TorchEngine.fused_plan`);
+  - a picture whose filters fall outside the whole-frame device model
+    (`prep_filters` returns None) is fetched unfiltered after the kernel
+    and filtered on the host on the reference's CTB schedule
+    (ops/filters_sched.py, the "host_filters" stage); it stays a host
+    picture, uploaded where a later picture predicts from it.
+Monochrome, unequal luma / chroma depths and depths outside 8-12 bits
+raise NotImplementedError (`check_slice`).
 """
 from __future__ import annotations
 
@@ -57,13 +71,14 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..ops.filters import (apply_filters_device, device_filters_ok,
-                           fargs_arrays, prep_filters)
+from ..ops.filters import apply_filters_device, fargs_arrays, prep_filters
+from ..ops.filters_sched import apply_loop_filters
 from ..ops.idct import residual_bucket
 from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
                                derive_meta16, intra_fused,
                                intra_fused_banded, level_schedule,
-                               meta6_native, padded_dims, sort_meta_by_band)
+                               meta6_native, meta6_objects, padded_dims,
+                               sort_meta_by_band)
 from ..ops.mc import (combine_plane, combine_plane_w, mc_hprefilter,
                       mc_prefilter_pairs, mc_put_core, mc_put_pairs_core,
                       stage1_shape)
@@ -86,14 +101,17 @@ def _sm_for(sl, s, mid, tskip):
 
 
 def _res_buckets(fs: FrameSymbols):
-    """Residual TUs of a natively parsed picture by size: {s: dict(levels
-    [n, s, s], qp, flags [n, 5] (dst, tskip, bypass, rdpcm vertical,
-    rdpcm on), plane, x, y (plane coordinates), sm)} from `fs.native_raw`.
-    The JAX package's function of this name pads every bucket to a
-    geometric row count with far-away coordinates, to bound the number of
-    programs it compiles; nothing here compiles per shape, so exactly
-    the n rows are packed."""
+    """Residual TUs of a picture by size: {s: dict(levels [n, s, s], qp,
+    flags [n, 5] (dst, tskip, bypass, rdpcm vertical, rdpcm on), plane,
+    x, y (plane coordinates), sm)} from the native parser's raw arrays
+    (`fs.native_raw`) or, for a picture of the Python parser, from its
+    `CoeffBlock` list. The JAX package's function of this name pads
+    every bucket to a geometric row count with far-away coordinates, to
+    bound the number of programs it compiles; nothing here compiles per
+    shape, so exactly the n rows are packed."""
     raw = fs.native_raw
+    if raw is None:
+        return _res_buckets_objects(fs)
     cm, arena = raw["cb_meta"], raw["cb_levels"]
     sl = fs.active_scaling()
     out = {}
@@ -112,6 +130,28 @@ def _res_buckets(fs: FrameSymbols):
                       x=cm[sel, 1].astype(np.int32),
                       y=cm[sel, 2].astype(np.int32),
                       sm=_sm_for(sl, s, mid, flags[:, 1]))
+    return out
+
+
+def _res_buckets_objects(fs: FrameSymbols):
+    """`_res_buckets` over the Python parser's `fs.coeff_blocks`."""
+    sl = fs.active_scaling()
+    by_size = {s: [] for s in SIZES}
+    for cb in fs.coeff_blocks:
+        by_size[1 << cb.log2_size].append(cb)
+    out = {}
+    for s, blocks in by_size.items():
+        if not blocks:
+            continue
+        cols = np.array([(cb.qp, cb.plane, cb.x, cb.y, cb.matrix_id)
+                         for cb in blocks], np.int32)
+        flags = np.array([(cb.is_dst, cb.transform_skip,
+                           cb.transquant_bypass, cb.rdpcm_mode == 1,
+                           cb.rdpcm_mode >= 0) for cb in blocks], bool)
+        out[s] = dict(levels=np.stack([cb.levels for cb in blocks])
+                      .astype(np.int32), qp=cols[:, 0], flags=flags,
+                      plane=cols[:, 1], x=cols[:, 2], y=cols[:, 3],
+                      sm=_sm_for(sl, s, cols[:, 4], flags[:, 1]))
     return out
 
 
@@ -185,27 +225,36 @@ def ccp_scale_map(fs: FrameSymbols):
     """RExt cross-component prediction: the per-sample res_scale_val map
     [2, Hc, Wc] int8 over the chroma planes (0 where a TU does not use
     it), from the natively parsed TU records (flags bits 6-10 of
-    cb_meta hold res_scale_val + 9, 0 for none). None when the PPS flag is
-    off or no TU uses it. 4:4:4 only, the one format that allows it."""
+    cb_meta hold res_scale_val + 9, 0 for none) or the Python parser's
+    `CoeffBlock.cross_scale`. None when the PPS flag is off or no TU uses
+    it. 4:4:4 only, the one format that allows it."""
     if not getattr(fs.pps, "cross_component_prediction_enabled", 0):
         return None
-    cm = fs.native_raw["cb_meta"]
-    code = cm[:, 5] >> 6
-    sel = np.nonzero((cm[:, 0] > 0) & (code != 0) & ((code & 31) != 9))[0]
-    if not len(sel):
+    if fs.native_raw is None:
+        blocks = [cb for cb in fs.coeff_blocks
+                  if cb.plane and cb.cross_scale]
+        rec = np.array([(cb.plane, cb.x, cb.y, cb.log2_size, cb.cross_scale)
+                        for cb in blocks], np.int32).reshape(-1, 5)
+    else:
+        cm = fs.native_raw["cb_meta"]
+        code = cm[:, 5] >> 6
+        sel = (cm[:, 0] > 0) & (code != 0) & ((code & 31) != 9)
+        rec = np.concatenate([cm[sel, :4], ((code[sel] & 31) - 9)[:, None]],
+                             axis=1)
+    if not len(rec):
         return None
     sps = fs.sps
     smap = np.zeros((2, sps.height >> sps.vshift1, sps.width >> sps.hshift1),
                     np.int8)
     for s in SIZES:
-        rows = sel[cm[sel, 3] == s.bit_length() - 1]
+        rows = rec[rec[:, 3] == s.bit_length() - 1]
         if not len(rows):
             continue
         ar = np.arange(s)
-        smap[(cm[rows, 0] - 1)[:, None, None],
-             cm[rows, 2][:, None, None] + ar[None, :, None],
-             cm[rows, 1][:, None, None] + ar[None, None, :]] = \
-            ((code[rows] & 31) - 9)[:, None, None]
+        smap[(rows[:, 0] - 1)[:, None, None],
+             rows[:, 2][:, None, None] + ar[None, :, None],
+             rows[:, 1][:, None, None] + ar[None, None, :]] = \
+            rows[:, 4][:, None, None]
     return smap
 
 
@@ -497,12 +546,11 @@ def check_slice(fs: FrameSymbols):
     """Raise NotImplementedError for a picture outside the ported path."""
     sps = fs.sps
     why = None
-    if sps.chroma_format_idc not in (1, 2, 3) or fs.native_raw is None:
-        # monochrome, or more than 24 tile columns / rows: the Python
-        # parser's jobs carry no wavefront level for the kernels' schedule
-        why = ("a picture from the Python parser (monochrome, or more than "
-               "24 tile columns or rows) has no wavefront levels: "
-               "ROADMAP.md Queue 1 item 13")
+    if sps.chroma_format_idc not in (1, 2, 3):
+        # the residual, the kernels' planes and the filters all assume
+        # two chroma planes
+        why = ("monochrome (4:0:0): outside what this decoder supports "
+               "(4:2:0, 4:2:2 and 4:4:4)")
     elif sps.bit_depth_chroma != sps.bit_depth:
         # both fused kernels and the residual take one bit depth for all
         # three planes
@@ -512,24 +560,53 @@ def check_slice(fs: FrameSymbols):
     elif not 8 <= sps.bit_depth <= 12:
         why = (f"bit depth {sps.bit_depth}: outside what this decoder "
                f"supports (equal depths of 8 to 12 bits)")
-    elif fs.inter_pbs and fs.pcm_blocks:
-        why = ("an inter picture with PCM blocks: ROADMAP.md Queue 1 "
-               "item 9 (packed fallback path)")
     if why:
         raise NotImplementedError(f"POC {fs.poc}: {why}")
 
 
 def host_pack(fs: FrameSymbols) -> dict:
-    """The picture's residual arenas and intra job meta for the upload:
-    the native packer's (`fs.native_pack`) where it ran, else (a picture
-    with scaling lists) the Python packer's over the raw parse arrays, in
-    the same byte format and with the same six-row meta."""
+    """The picture's residual arenas, intra job meta and number of
+    wavefront levels (`n_levels`) for the upload: the native packer's
+    (`fs.native_pack`) where it ran, else the Python packer's, in the
+    same byte format and with the same six-row meta, over the native
+    parser's raw arrays (a picture with scaling lists) or the Python
+    parser's objects (its levels by `object_levels`)."""
     if fs.native_pack is not None:
         return fs.native_pack
+    raw = fs.native_raw
     arena4, arena16, esc, caps = _pack_arena(_res_buckets(fs))
-    meta6 = meta6_native(fs.native_raw)
+    if raw is not None:
+        meta6, n_levels = meta6_native(raw), raw["n_levels"]
+    else:
+        meta6, n_levels = meta6_objects(fs.intra_jobs, fs.sps.height,
+                                        fs.sps.width)
     return dict(arena4=arena4, arena16=arena16, esc=esc, caps=caps,
-                meta6=meta6, n=meta6.shape[1])
+                meta6=meta6, n=meta6.shape[1], n_levels=n_levels)
+
+
+def pcm_scatter(fs: FrameSymbols, wl: int, wc: int, hc: int):
+    """The PCM samples of a picture as flat (index, value) pairs into
+    the padded planes: (idx_l int32, val_l int16, idx_c int32, val_c
+    int16), chroma indices into the [2, hc, wc] stack. The starting
+    planes (zeros or the inter prediction) take them with one indexed
+    store a plane; PCM blocks carry no residual and no intra job."""
+    sps = fs.sps
+    hs, vs = sps.hshift1, sps.vshift1
+    il, vl, ic, vc = [], [], [], []
+    for p in fs.pcm_blocks:
+        s = p.size
+        yy, xx = np.mgrid[0:s, 0:s]
+        il.append(((OY + p.y + yy) * wl + OX + p.x + xx).reshape(-1))
+        vl.append(np.asarray(p.samples_y).reshape(-1))
+        cy, cx = np.mgrid[0:s >> vs, 0:s >> hs]
+        base = (OY + (p.y >> vs) + cy) * wc + OX + (p.x >> hs) + cx
+        for k, smp in enumerate((p.samples_cb, p.samples_cr)):
+            ic.append((k * hc * wc + base).reshape(-1))
+            vc.append(np.asarray(smp).reshape(-1))
+    return (np.concatenate(il).astype(np.int32),
+            np.concatenate(vl).astype(np.int16),
+            np.concatenate(ic).astype(np.int32),
+            np.concatenate(vc).astype(np.int16))
 
 
 class TorchPlanes:
@@ -710,7 +787,17 @@ class TorchEngine:
     def fused_plan(self, fs: FrameSymbols):
         """("whole", (hl, wl, hc, wc)) when the padded planes fit the
         whole-frame gate, else ("banded", (hl, wl, hc, wc), band_h,
-        nbands) at `band_plan`'s dims (the JAX package's `_fused_plan`)."""
+        nbands) at `band_plan`'s dims (the JAX package's `_fused_plan`),
+        else, where `band_plan` finds no band (4:2:2 UHD at CTB 64, 4:4:4
+        from 2440 wide, 8K 4:2:0), ("whole", (hl, wl, hc, wc)) again.
+
+        Both gates are the TPU's: the whole-frame one is a VMEM limit and
+        `band_plan` sizes bands for 9 MiB of VMEM scratch. Both CUDA
+        kernels keep the planes in global memory, so the whole-frame
+        kernel takes a frame of any size; the gates are kept where a band
+        plan exists so that every stream takes the kernel the JAX package
+        would, and the last case takes the whole-frame kernel, whose
+        output equals the JAX package's packed path there."""
         sps = fs.sps
         H, W = sps.height, sps.width
         Hc, Wc = H >> sps.vshift1, W >> sps.hshift1
@@ -720,9 +807,7 @@ class TorchEngine:
             return ("whole", (hl, wl, hc, wc))
         plan = band_plan(H, W, Hc, Wc, sps.ctb_size, sps.vshift1)
         if plan is None:
-            raise NotImplementedError(
-                f"POC {fs.poc}: {W}x{H} fits neither fused kernel's plan: "
-                f"ROADMAP.md Queue 1 item 9 (packed fallback path)")
+            return ("whole", (hl, wl, hc, wc))
         band_h, nb, hl, wl, hc, wc = plan
         return ("banded", (hl, wl, hc, wc), band_h, nb)
 
@@ -731,9 +816,10 @@ class TorchEngine:
     def _ref_plane_dev(self, planes_obj, c):
         """Plane c of a reference picture as an int32 tensor on this
         engine's device. A decoded picture (`TorchPlanes`) is sliced from
-        its flat output where it lies; a host-only picture (the mid-grey
-        concealment frame of a missing reference) is uploaded, once per
-        stay in the stage-1 cache."""
+        its flat output where it lies (uploaded if that is the host: a
+        picture of the host-filter route); a host-only picture (the
+        mid-grey concealment frame of a missing reference) is uploaded.
+        Either upload happens once per stay in the stage-1 cache."""
         flat = getattr(planes_obj, "_dev", None)
         if flat is not None:
             return _slice_plane(flat, c, *planes_obj._dims) \
@@ -788,9 +874,13 @@ class TorchEngine:
 
     def reconstruct(self, fs: FrameSymbols, ref_planes=None) -> TorchPlanes:
         """Reconstruct one parsed picture; the output stays on the
-        device and nothing is read back from it. ref_planes: {poc:
+        device and nothing is read back from it, bar a picture whose
+        in-loop filters lie outside the whole-frame device model: its
+        unfiltered planes are fetched, filtered on the host on the
+        reference's CTB schedule (ops/filters_sched.py) and the result
+        stays on the host (timed as "host_filters"). ref_planes: {poc:
         planes} of the pictures the decoder holds as references (decoded
-        pictures as `TorchPlanes`, read on the device; host-only
+        pictures as `TorchPlanes`, read where they lie; host-only
         concealment frames as [Y, Cb, Cr] arrays)."""
         k = self.prepare(fs, ref_planes)
         tail = (k["luma"], k["chroma"], k["res_l"], k["res_c"], k["bd"],
@@ -804,6 +894,14 @@ class TorchEngine:
         # them; crop; downcast
         H, W, Hc, Wc = k["dims"]
         bd, f = k["bd"], k["filters"]
+        if k["host_filters"]:
+            with self._stage("host_filters"):
+                planes = TorchPlanes(crop_pack(k["luma"], k["chroma"], H, W,
+                                               Hc, Wc, bd), H, W, Hc, Wc).get()
+                out = apply_loop_filters(planes, fs)
+                flat = np.concatenate([p.reshape(-1) for p in out]) \
+                    .astype(planes[0].dtype)
+            return TorchPlanes(torch.from_numpy(flat), H, W, Hc, Wc)
         if f is None:
             with self._stage("crop_pack"):
                 flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, bd)
@@ -825,13 +923,19 @@ class TorchEngine:
         """Steps 1-5 up to the intra kernel: the kernel's arguments
         (meta, n, luma, chroma, res_l, res_c, bd, order, level_bounds,
         and bounds, None for the whole-frame kernel) plus the frame dims
-        (H, W, Hc, Wc) and `filters` (None, or the in-loop filters'
-        device tensors and flags), all on this engine's
-        device. For a banded plan the meta is band sorted (its bounds
-        checked here, on the host) and the planes have `band_plan`'s
-        dims. The level schedule is made on the device from the uploaded
-        level row. On an inter picture luma / chroma hold the inter
-        prediction + residual (intra pixels 0)."""
+        (H, W, Hc, Wc), `filters` (None, or the in-loop filters' device
+        tensors and flags) and `host_filters` (the picture's filters run
+        on the host after the kernel), all on this engine's device. For
+        a banded plan the meta is band sorted (its bounds checked here,
+        on the host) and the planes have `band_plan`'s dims. The level
+        schedule is made on the device from the uploaded level row.
+
+        The starting planes luma / chroma hold, by what the picture is:
+        on an inter picture with a reference at hand, the inter
+        prediction + residual; without one (none of its references is
+        among ref_planes), zeros, as the JAX package's packed path leaves
+        inter blocks then; on any picture, its PCM samples written over
+        that; elsewhere 0. Intra pixels are 0."""
         check_slice(fs)
         sps = fs.sps
         H, W = sps.height, sps.width
@@ -857,26 +961,19 @@ class TorchEngine:
                 check_rising(bounds, n, "bounds")
                 at["bounds"] = len(host)
                 host.append(bounds)
-            pff = None
-            if not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma:
-                pff = prep_filters(fs) if device_filters_ok(fs) else None
-                if pff is None:
-                    raise NotImplementedError(
-                        f"POC {fs.poc}: in-loop filters whose CTB-16 chroma "
-                        f"halo pattern is outside the whole-frame model: "
-                        f"ROADMAP.md Queue 1 item 12 (host-scheduled filter "
-                        f"fallback)")
+            want_filters = not fs.deblock_disabled or fs.sao_luma or \
+                fs.sao_chroma
+            pff = prep_filters(fs) if want_filters else None
             if pff is not None:
                 at["fargs"] = len(host)
                 host.extend(fargs_arrays(pff))
+            if fs.pcm_blocks:
+                at["pcm"] = len(host)
+                host.extend(pcm_scatter(fs, wl, wc, hc))
         inter = None
         if fs.inter_pbs:
             inter = self._pack_inter(fs, ref_planes or {}, (H, W, Hc, Wc))
-            if inter is None:
-                raise NotImplementedError(
-                    f"POC {fs.poc}: an inter picture with no usable "
-                    f"reference: ROADMAP.md Queue 1 item 9 (packed fallback "
-                    f"path)")
+        if inter is not None:
             at["md"] = len(host)
             host += [inter["md"]["idx"], inter["md"]["vals"]]
             if inter["wt"] is not None:
@@ -901,7 +998,7 @@ class TorchEngine:
                 res_l[OY:OY + H, OX:OX + W] = acc_l
                 res_c[:, OY:OY + Hc, OX:OX + Wc] = acc_c
 
-        # ---- starting planes (inter prediction, PCM samples, or zeros) ---
+        # ---- starting planes (inter prediction or zeros; PCM samples) ----
         if inter is not None:
             md, wt = inter["md"], inter["wt"]
             luma, chroma = _inter_prefill(
@@ -911,26 +1008,19 @@ class TorchEngine:
                 hs=hs, vs=vs, h4=md["h4"], w4=md["w4"],
                 denoms=tuple(wt["denoms"]) if wt else None,
                 pairs=inter["pairs"], stage=self._stage)
-        elif fs.pcm_blocks:
-            p0 = np.zeros((hl, wl), np.int32)
-            c0 = np.zeros((2, hc, wc), np.int32)
-            for p in fs.pcm_blocks:
-                s_ = p.size
-                p0[OY + p.y:OY + p.y + s_, OX + p.x:OX + p.x + s_] = \
-                    p.samples_y
-                cy, cx = OY + (p.y >> vs), OX + (p.x >> hs)
-                c0[0, cy:cy + (s_ >> vs), cx:cx + (s_ >> hs)] = p.samples_cb
-                c0[1, cy:cy + (s_ >> vs), cx:cx + (s_ >> hs)] = p.samples_cr
-            luma, chroma = _upload([p0, c0], self.device)
         else:
             luma = torch.zeros((hl, wl), dtype=torch.int32,
                                device=self.device)
             chroma = torch.zeros((2, hc, wc), dtype=torch.int32,
                                  device=self.device)
+        if "pcm" in at:
+            il, vl, ic, vc = dev[at["pcm"]:at["pcm"] + 4]
+            luma.view(-1)[il.long()] = vl.to(torch.int32)
+            chroma.view(-1)[ic.long()] = vc.to(torch.int32)
 
         with self._stage("meta_schedule"):
             order, level_bounds = level_schedule(meta6[5], n,
-                                                 fs.native_raw["n_levels"])
+                                                 npk["n_levels"])
             meta16 = derive_meta16(
                 meta6[:5],
                 sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
@@ -945,4 +1035,5 @@ class TorchEngine:
         return dict(meta=meta16, n=n, bounds=bounds, order=order,
                     level_bounds=level_bounds, luma=luma, chroma=chroma,
                     res_l=res_l, res_c=res_c, bd=bd, dims=(H, W, Hc, Wc),
-                    hs=hs, vs=vs, filters=filters)
+                    hs=hs, vs=vs, filters=filters,
+                    host_filters=want_filters and pff is None)

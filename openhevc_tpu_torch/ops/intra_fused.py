@@ -176,6 +176,63 @@ def meta6_native(raw: dict) -> np.ndarray:
                            level.astype(np.int16)[None, :]])
 
 
+def pack_meta_objects(jobs) -> np.ndarray:
+    """`pack_meta` of the Python parser's decode-order `IntraJob` list."""
+    if not jobs:
+        return np.zeros((5, 0), np.int16)
+    cols = np.array([(j.plane, j.x, j.y, j.size, j.mode) for j in jobs],
+                    np.int32)
+    av = np.zeros((len(jobs), 129), np.uint8)
+    for i, j in enumerate(jobs):
+        av[i, :len(j.avail)] = j.avail
+    return pack_meta(cols[:, 0], cols[:, 1], cols[:, 2], cols[:, 3],
+                     cols[:, 4], av)
+
+
+def _neighbour_offsets(s: int):
+    """(dx, dy) of the 4s+1 reference samples of an s x s TU in spec
+    order (left bottom->top | corner | top left->right)."""
+    k = np.arange(2 * s)
+    return (np.concatenate([np.full(2 * s + 1, -1), k]),
+            np.concatenate([2 * s - 1 - k, [-1], np.full(2 * s, -1)]))
+
+
+_OFFSETS = {s: _neighbour_offsets(s) for s in (4, 8, 16, 32)}
+
+
+def object_levels(jobs, H: int, W: int) -> np.ndarray:
+    """Each job's wavefront level (int32 [n]) from the Python parser's
+    jobs, by the rule the native parser applies (and the JAX package's
+    `_pack_from_objects`): 1 + the highest level among the jobs that
+    wrote an available reference sample, per plane on the 4x4 grid; 0
+    for samples no job wrote."""
+    level_map = np.zeros((3, (H >> 2) + 1, (W >> 2) + 1), np.int32)
+    out = np.zeros(len(jobs), np.int32)
+    for i, j in enumerate(jobs):
+        s = j.size
+        dx, dy = _OFFSETS[s]
+        av = np.asarray(j.avail[:4 * s + 1], bool)
+        m = level_map[j.plane]
+        lvl = 1
+        if av.any():
+            lvl += int(m[(j.y + dy[av]) >> 2, (j.x + dx[av]) >> 2].max())
+        n4 = max(1, s >> 2)
+        m[j.y >> 2:(j.y >> 2) + n4, j.x >> 2:(j.x >> 2) + n4] = lvl
+        out[i] = lvl
+    return out
+
+
+def meta6_objects(jobs, H: int, W: int):
+    """(meta [6, n] int16, n_levels): `pack_meta_objects` plus each job's
+    `object_levels` as the sixth row, the layout of `meta6_native`."""
+    level = object_levels(jobs, H, W)
+    if len(level) and int(level.max()) > 32767:
+        raise ValueError("intra job levels outside 1..32767")
+    return (np.concatenate([pack_meta_objects(jobs),
+                            level.astype(np.int16)[None, :]]),
+            int(level.max()) if len(level) else 0)
+
+
 def derive_meta16(meta8: torch.Tensor, sdis: bool, c444: bool,
                   strong: bool) -> torch.Tensor:
     """[5, npad] int16 packed rows (y, x, sl|plane<<2|mode<<4|av_hi<<10,

@@ -122,13 +122,18 @@ def test_fused_plan_follows_the_jax_gate(W, H, cs):
 
 
 def test_fused_plan_without_a_band_raises(monkeypatch):
+    """Where `band_plan` finds no band (its budget is the TPU's VMEM
+    scratch), the plan is the whole-frame kernel on the padded frame:
+    both CUDA kernels keep the planes in global memory."""
+    from openhevc_tpu.ops.intra_fused import padded_dims
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops import intra_fused as port
     monkeypatch.setattr(port, "VMEM_SCRATCH_BUDGET", 0)
     sps = SimpleNamespace(height=2160, width=3840, vshift1=1, hshift1=1,
                           ctb_size=64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TorchEngine("cpu").fused_plan(SimpleNamespace(sps=sps, poc=0))
+    plan = TorchEngine("cpu").fused_plan(SimpleNamespace(sps=sps, poc=0))
+    assert plan == ("whole", padded_dims(2160, 3840) +
+                    padded_dims(1080, 1920))
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

@@ -1,9 +1,11 @@
 """The whole slice: openhevc_tpu_torch `Decoder(device="cpu")` vs the
 encoder's reconstruction and the JAX package's decoders on small intra
 streams (WPP and PCM included), and NotImplementedError for what lies
-outside the port (inter and filtered streams: tests/test_torch_inter.py,
-tests/test_torch_filters.py; range extensions: tests/test_torch_rext.py;
-two layers: tests/test_torch_shvc.py). Tolerance: none (8-bit samples)."""
+outside the port (a mesh). Inter and filtered streams:
+tests/test_torch_inter.py, tests/test_torch_filters.py; range extensions:
+tests/test_torch_rext.py; two layers: tests/test_torch_shvc.py; the
+routes off the main path: tests/test_torch_fallback.py. Tolerance: none
+(8-bit samples)."""
 import numpy as np
 import pytest
 import torch
@@ -71,26 +73,30 @@ def test_outputs_stay_on_device_until_fetched():
     ("shvc_mesh", "multi-device waves.*Queue 1 item 11"),
 ])
 def test_outside_the_slice_raises(case, what):
-    """Scaling lists and 12 bits decode now (tests/test_torch_rext.py
-    holds the three streams this test used to see refused). What still
-    lies outside names its reason: an inter picture with PCM blocks, a
-    picture from the Python parser (no wavefront levels), a mesh."""
-    from types import SimpleNamespace
+    """Of what this test once saw refused, a mesh still is (ROADMAP item
+    11). An inter picture with PCM blocks now decodes to the output of
+    the JAX package's packed path (`JaxEngine.reconstruct` on the same
+    symbols), and a picture from the Python parser decodes equal to the
+    encoder's reconstruction and `Decoder("np")`
+    (tests/test_torch_fallback.py holds both at length). For those two
+    cases `what` is the refusal they met before, kept as the test id."""
     from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
-    from openhevc_tpu_torch.models.pipeline import TorchEngine
-    with pytest.raises(NotImplementedError, match=what):
-        if case == "shvc_mesh":
+    if case == "shvc_mesh":
+        with pytest.raises(NotImplementedError, match=what):
             ShvcDecoder(device="cpu", mesh=object())
-        elif case == "python_parser":
-            data, _ = encode(64, 64, n=1, seed=1, qp=30, ctb_log2=4)
-            dec = Decoder(device="cpu")
-            dec.native_parse = False
-            _decode(dec, data)
-        else:
-            from test_torch_inter import _captured, stream
-            fs, refs = _captured(stream("p"))[0]
-            fs.pcm_blocks = [SimpleNamespace(x=0, y=0, size=8)]
-            TorchEngine("cpu").reconstruct(fs, refs)
+    elif case == "python_parser":
+        from openhevc_tpu.decoder import Decoder as NpDecoder
+        data, recons = encode(64, 64, n=1, seed=1, qp=30, ctb_log2=4)
+        dec = Decoder(device="cpu", native_parse=False)
+        got = _decode(dec, data)
+        want = _decode(NpDecoder("np"), data)
+        assert dec.stats["python_slices"] == 1
+        for c in range(3):
+            assert np.array_equal(got[0][c], want[0][c])
+            assert np.array_equal(got[0][c], recons[0][c])
+    else:
+        from test_torch_inter import test_inter_pictures_outside_the_slice_raise
+        test_inter_pictures_outside_the_slice_raise()
 
 
 def test_unported_entry_points_raise():

@@ -3,9 +3,10 @@ port (ops/filters.py) vs the JAX package's (ops/filters_jax.py, plain XLA,
 runs on the CPU) and vs the reference-exact scalar schedule
 (ops/filters_sched.py), on the matrix of tests/test_device_filters.py:
 CTB 16 / 32, PCM, transquant bypass, deblock-only, SAO-only, and, for
-the filter functions alone, 4:2:2 / 4:4:4 (the decoder still stops those
-formats). Then whole decodes with the filters on, intra and inter, vs
-`Decoder("np")`. Tolerance: none (integer samples)."""
+the filter functions alone, 4:2:2 / 4:4:4. Then whole decodes with the
+filters on, intra and inter, vs `Decoder("np")`, and a halo pattern
+outside the model, which takes the host-scheduled filters. Tolerance:
+none (integer samples)."""
 import numpy as np
 import pytest
 import torch
@@ -242,20 +243,23 @@ def test_port_decoder_filtered_matches_jax_decoder():
 
 
 def test_filter_pattern_outside_the_model_raises(monkeypatch):
-    """Where `prep_filters` gives up on a CTB-16 halo pattern the JAX
-    package falls back to its host schedule; the port refuses the picture
-    and never returns it unfiltered."""
+    """Where `prep_filters` gives up on a CTB-16 halo pattern the picture
+    takes the host-scheduled filters (ops/filters_sched.py), as in the
+    JAX package: it is returned filtered, equal to `Decoder("np")`."""
     from openhevc_tpu_torch.decoder import Decoder
     from openhevc_tpu_torch.models import pipeline
     from openhevc_tpu_torch.ops import filters
     data, _, _ = _intra_filtered("ctb16")
+    want = np_decode(data)
     monkeypatch.setattr(filters, "_chroma_stale_reads", lambda fs: None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        decode(Decoder(device="cpu"), data)
+    got, pics = decode(Decoder(device="cpu"), data)
+    assert_same(got, want)
+    assert not any(p.planes.device_filtered for p in pics)
     monkeypatch.undo()
     monkeypatch.setattr(pipeline, "prep_filters", lambda fs: None)
-    with pytest.raises(NotImplementedError, match="in-loop filters"):
-        decode(Decoder(device="cpu"), data)
+    got, pics = decode(Decoder(device="cpu"), data)
+    assert_same(got, want)
+    assert not any(p.planes.device_filtered for p in pics)
 
 
 def test_filters_ride_in_the_one_upload(monkeypatch):
@@ -293,7 +297,7 @@ def test_decoder_still_stops_other_chroma_formats(fmt):
     """The decoder no longer stops 4:2:2 / 4:4:4 (tests/test_torch_rext.py
     holds them at length): the filtered stream this test saw refused now
     decodes, equal to `Decoder("np")`. The one chroma format it still
-    stops is the Python parser's monochrome (no wavefront levels)."""
+    stops is monochrome, naming no ROADMAP item."""
     from types import SimpleNamespace
     from openhevc_tpu.encoder.intra_enc import encode_intra_stream
     from openhevc_tpu_torch.decoder import Decoder
@@ -305,9 +309,10 @@ def test_decoder_still_stops_other_chroma_formats(fmt):
     assert_same(decode(Decoder(device="cpu"), data)[0], np_decode(data))
     mono = SimpleNamespace(chroma_format_idc=0, bit_depth=8,
                            bit_depth_chroma=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="monochrome") as e:
         check_slice(SimpleNamespace(sps=mono, pps=None, poc=0,
                                     native_raw=None))
+    assert "item" not in str(e.value)
 
 
 def test_shift_params_and_expand_ctb():

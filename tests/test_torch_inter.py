@@ -303,21 +303,51 @@ def _captured(data, want_inter=True):
 
 
 def test_inter_pictures_outside_the_slice_raise():
-    """What the JAX package sends down its packed path stays refused:
-    an inter picture with PCM blocks, and one with no usable reference."""
-    from types import SimpleNamespace
+    """What the JAX package sends down its packed path now decodes, to
+    that path's output (`JaxEngine.reconstruct` on the same stream's
+    symbols): an inter picture with no usable reference (inter blocks
+    stay 0), and one with PCM blocks (the PCM samples over the inter
+    prefill, put into both packages' symbols alike)."""
+    from openhevc_tpu.decoder import Decoder as JaxDecoder
+    from openhevc_tpu.models.pipeline import JaxEngine
+    from openhevc_tpu.symbols import PcmBlock as JaxPcm
     from openhevc_tpu_torch.models.pipeline import TorchEngine
-    fs, refs = _captured(stream("p"))[0]
-    with pytest.raises(NotImplementedError, match="no usable reference.*"
-                                                  "Queue 1 item 9"):
-        TorchEngine("cpu").reconstruct(fs, {})
-    with pytest.raises(NotImplementedError, match="no usable reference"):
-        TorchEngine("cpu").reconstruct(fs, {p + 1000: r
-                                            for p, r in refs.items()})
-    fs.pcm_blocks = [SimpleNamespace(x=0, y=0, size=8)]
-    with pytest.raises(NotImplementedError, match="PCM blocks.*"
-                                                  "Queue 1 item 9"):
-        TorchEngine("cpu").reconstruct(fs, refs)
+    from openhevc_tpu_torch.symbols import PcmBlock
+    data = stream("p")
+    fs, refs = _captured(data)[0]
+
+    class Capture(JaxDecoder):
+        def _reconstruct(self, fs, refs):
+            self.seen.append((fs, refs))
+            return super()._reconstruct(fs, refs)
+    d = Capture("jax")
+    d.seen = []
+    d.decode(data)
+    d.flush()
+    jfs, jrefs = [s for s in d.seen if s[0].inter_pbs][0]
+
+    def same(ours, theirs):
+        got = TorchEngine("cpu").reconstruct(fs, ours)
+        out = JaxEngine().reconstruct(jfs, theirs)
+        want = out.get() if hasattr(out, "get") else out
+        for c in range(3):
+            assert np.array_equal(np.asarray(got[c]), np.asarray(want[c])), c
+        return got
+
+    same({}, {})
+    same({p + 1000: r for p, r in refs.items()},
+         {p + 1000: r for p, r in jrefs.items()})
+    rng = np.random.default_rng(9)
+    samples = [rng.integers(0, 256, sh).astype(np.int32)
+               for sh in ((8, 8), (4, 4), (4, 4))]
+    pf = np.asarray(fs.motion.pred_flag)
+    ys, xs = np.nonzero((pf[:-1:2, :-1:2] > 0) & (pf[1::2, 1::2] > 0))
+    y, x = 8 * int(ys[0]), 8 * int(xs[0])      # an inter 8x8 block
+    for f, cls in ((fs, PcmBlock), (jfs, JaxPcm)):
+        f.motion.pred_flag[y >> 2:(y >> 2) + 2, x >> 2:(x >> 2) + 2] = 0
+        f.pcm_blocks = [cls(x, y, 8, *samples)]
+    got = same(refs, jrefs)
+    assert np.array_equal(np.asarray(got[0])[y:y + 8, x:x + 8], samples[0])
 
 
 # ---- the CUDA kernel on prefilled planes (needs a card) --------------------

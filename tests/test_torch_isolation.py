@@ -57,7 +57,10 @@ def test_no_jax_or_jax_package_imports():
     assert len(files) > 17
     names = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/mc.py", "ops/filters.py", "ops/intra_fused.py",
-                "models/pipeline.py", "decoder.py"):
+                "models/pipeline.py", "decoder.py", "ops/filters_sched.py",
+                "api.py", "__main__.py", "display.py",
+                "bitstream/au_parser.py", "container/mp4.py",
+                "container/ts.py", "container/mkv.py", "container/ogg.py"):
         assert os.path.join("openhevc_tpu_torch", mod) in names
     bad = [(os.path.relpath(f, ROOT), line, mod)
            for f in files for mod, line in _imports(f)
@@ -82,6 +85,11 @@ def test_import_leaves_jax_unloaded():
             "import openhevc_tpu_torch.ops.mc\n"
             "import openhevc_tpu_torch.ops.filters\n"
             "import openhevc_tpu_torch.kernels\n"
+            "import openhevc_tpu_torch.api\n"
+            "import openhevc_tpu_torch.__main__\n"
+            "import openhevc_tpu_torch.container\n"
+            "import openhevc_tpu_torch.display\n"
+            "import openhevc_tpu_torch.ops.filters_sched\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'openhevc_tpu')]\n"
             "assert not bad, bad\n")
@@ -89,6 +97,15 @@ def test_import_leaves_jax_unloaded():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_cli_imports_the_ports_own_modules():
+    """The CLI's container import is the port's (the JAX package's CLI
+    imports its containers by absolute name)."""
+    mods = {m for m, _ in _imports(os.path.join(PKG, "__main__.py"))}
+    assert not [m for m in mods if m.startswith("openhevc_tpu.")]
+    assert "openhevc_tpu_torch.container" in mods
+    assert "openhevc_tpu_torch.api" in mods
 
 
 def test_default_device_raises_without_a_card():

@@ -307,12 +307,18 @@ def test_shvc_entry_point_refuses_what_is_not_ported():
 
 def test_el_without_its_base_layer_names_its_reason():
     """An EL decoder whose BL decoder holds no picture builds no
-    inter-layer reference; its first picture then has no usable
-    reference, which stays refused (the packed fallback path)."""
+    inter-layer reference; its pictures then have no usable reference
+    and take the packed path's starting planes (inter blocks 0), as in
+    the JAX package: the output equals its EL decoder's, fed alike."""
+    from openhevc_tpu.decoder import Decoder as JaxDecoder
     from openhevc_tpu_torch.decoder import Decoder
     data, _ = _stream("x2")
     el = Decoder(device="cpu", layer=1)
     el.shvc_bl = Decoder(device="cpu")         # never fed
-    with pytest.raises(NotImplementedError, match="no usable reference.*"
-                                                  "Queue 1 item 9"):
-        decode(el, data)
+    ref = JaxDecoder("jax", layer=1)
+    ref.shvc_bl = JaxDecoder("jax")
+    got, want = decode(el, data), decode(ref, data)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for c in range(3):
+            assert np.array_equal(np.asarray(g[c]), np.asarray(w[c])), c
