@@ -67,7 +67,27 @@ out). Phases (each one fails the run with a non-zero exit):
      (iv) the CLI: `python3 -m openhevc_tpu_torch -i ... -o ... -n` as a
          subprocess on i_main as Annex-B and as an MP4 written by the
          port's `container.mux_mp4`, every frame of the .yuv md5-exact;
-  6. print decode rates (every timed pass is md5-checked too), stage
+  6. (new in slice 7) picture waves over a `parallel.DeviceMesh` built
+     from the cards present, each repeated to the size asked for (four
+     entries of cuda:0 on a machine with one card; the repeat is
+     printed): on a frame axis of WAVE_FRAMES entries, i_main (waves of
+     4), ra_main_1080p (its histogram of wave sizes must show inter
+     waves of 3 or more pictures), ra_main10_4k and shvc_2layer through
+     `ShvcDecoder(mesh=...)`; on a 2-D mesh of WAVE_GRID (frame x tile),
+     ra_tiles_1080p (4x2 tiles in 2 tile groups; deblocking + SAO
+     band-sharded) and i_main (untiled: tile group 0 does all the
+     intra work). Each decode with every launch counter set to 0 just
+     before, md5-exact against the sidecar, with the launches predicted
+     from the parse (frame axis: one a member with intra jobs; tile
+     axis: one a tile shard with jobs, from the tile maps), and its
+     decode fps with the mesh and on one device timed in turns (mesh,
+     one device, mesh; each pass md5-checked) beside phase 4's for the
+     stream; then the banded kernel
+     on tile shard 0 of ra_tiles_1080p frame 0 (its jobs cut to the
+     group, levels renumbered densely) == its plain version on the
+     shard's first PLAIN_BANDS bands == the serial-order entry on the
+     whole shard, timed beside the kernel on the whole frame;
+  7. print decode rates (every timed pass is md5-checked too), stage
      breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
      rate, MC stage 2, combine, kernel, deblock, SAO, crop, the
      inter-layer upsample, fetch; for shvc_2layer a frame is an
@@ -108,8 +128,11 @@ PLAIN_BANDS = 2     # bands of 4K frame 0 held to the plain version
 RA_4K_PICTURES = 5  # pictures of ra_main10_4k on the no-band-plan route
 HOST_FILTER_PICTURES = 3    # pictures of ra_tiles_1080p, host filters
 PY_PARSE_SECONDS = 40       # budget of the Python-parser phase's decode
+WAVE_FRAMES = 4             # entries of the frame-axis mesh (phase 6)
+WAVE_GRID = (2, 2)          # frame x tile entries of the 2-D mesh (phase 6)
 POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
 FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
+PHASE4_FPS = {}     # stream -> decode fps of its phase-4 decode
 
 
 def load_stream(name):
@@ -270,13 +293,14 @@ def _bound_ms(fs, k):
     and order (64 + 4 B a job), the level bounds, the residual of the
     jobs' samples read once and their reconstruction written once (8 B a
     sample: all of an all-intra frame, the intra TUs of an inter
-    picture), and the PCM samples prefilled into the starting planes
+    picture; the jobs are the n of k's meta: a tile shard's are its
+    group's), and the PCM samples prefilled into the starting planes
     (the kernel reads no other sample of those planes that it has not
     written itself, bar the neighbours of intra TUs beside inter blocks,
     which are not counted)."""
     pcm = sum(p.size * p.size + 2 * (p.size >> fs.sps.vshift1)
               * (p.size >> fs.sps.hshift1) for p in fs.pcm_blocks)
-    size = fs.native_raw["ij_meta"][:, 3].astype("int64")
+    size = 4 << k["meta"][2, :k["n"]].long()
     nbytes = (16 + 1) * 4 * k["n"] + 4 * k["level_bounds"].numel() + \
         2 * 4 * int((size * size).sum()) + 4 * pcm
     return nbytes / HBM_BYTES_PER_S * 1e3
@@ -729,9 +753,10 @@ def main_path(name, counters):
                two_layers=two)                            # warm-up
     for f in counters.values():
         f.launches = 0
-    pics, _, dec = decode_all(data, fetch=False, two_layers=two)
+    pics, dt, dec = decode_all(data, fetch=False, two_layers=two)
     launches = {n: f.launches for n, f in counters.items()}
     got = hash_pics(pics)
+    PHASE4_FPS[name] = len(pics) / dt
     POC_ORDER[name] = [p.poc for p in pics]
     FRAME_BYTES[name] = sum(c.nbytes for c in pics[0].cropped())
     n_ok = sum(g == w for g, w in zip(got, want))
@@ -966,8 +991,195 @@ def check_cli():
     return out
 
 
+# ---- phase 6: picture waves over a device mesh -------------------------------
+
+def wave_meshes():
+    """(frame-axis mesh, 2-D mesh) from the cards present, each card
+    repeated in turn to the WAVE_FRAMES / WAVE_GRID entries asked for."""
+    import torch
+    from openhevc_tpu_torch.parallel import DeviceMesh
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    nf, nt = WAVE_GRID
+    flat = [cards[i % len(cards)] for i in range(max(WAVE_FRAMES, nf * nt))]
+    frame = DeviceMesh(flat[:WAVE_FRAMES], ("frame",))
+    grid = DeviceMesh([flat[i * nt:(i + 1) * nt] for i in range(nf)],
+                      ("frame", "tile"))
+    print(f"phase6 meshes from {len(cards)} card(s): frame axis {frame}, "
+          f"2-D {grid} (each card repeated "
+          f"{-(-len(flat) // len(cards))} times)", flush=True)
+    return frame, grid
+
+
+def groups_with_jobs(fs, n_tile):
+    """Tile groups (tile id % n_tile, from the picture's tile maps) that
+    hold an intra job of the parsed picture: one kernel launch each."""
+    import numpy as np
+    from openhevc_tpu_torch.bitstream.ps import ctb_tile_maps
+    im, sps = fs.native_raw["ij_meta"], fs.sps
+    if not len(im):
+        return set()
+    tile_id = ctb_tile_maps(fs.pps, sps)[2] if fs.pps.tiles_enabled else \
+        np.zeros((sps.ctbs_h, sps.ctbs_w), np.int32)
+    chroma = im[:, 0] > 0
+    lx = np.where(chroma, im[:, 1] << sps.hshift1, im[:, 1])
+    ly = np.where(chroma, im[:, 2] << sps.vshift1, im[:, 2])
+    return set((tile_id[ly >> sps.log2_ctb, lx >> sps.log2_ctb] % n_tile)
+               .tolist())
+
+
+def wave_decode(name, mesh, counters):
+    """Phase 6 on one stream: decode it through the port's entry point
+    with `mesh` (`ShvcDecoder` for two layers), every launch counter at 0
+    just before; every frame md5-exact; launches of the stream's kernel
+    equal to the prediction from the parse (frame axis: one a wave
+    member with intra jobs; tile axis: one a tile shard whose group
+    holds jobs), of the other kernels 0. Then one decode on one device
+    and one more with the mesh, in turns with the first (host speed
+    drifts within a call), each md5-checked. Returns a dict of what was
+    seen (waves, launches, fps with the mesh and on one device)."""
+    from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
+    from openhevc_tpu_torch.parallel import MeshFrameDecoder
+    data, want = load_stream(name)
+    two = name in TWO_LAYERS
+    n_tile = int(mesh.shape.get("tile", 1))
+    waves = []
+    orig = MeshFrameDecoder.reconstruct_wave
+
+    def spy(self, fs_list, refs_list=None):
+        waves.append([(fs.poc, bool(fs.inter_pbs),
+                       len(groups_with_jobs(fs, n_tile)) if n_tile > 1
+                       else int(n_jobs(fs) > 0)) for fs in fs_list])
+        return orig(self, fs_list, refs_list)
+
+    def decode(blob, m=mesh):
+        kw = dict(mesh=m) if m is not None else dict(device="cuda")
+        dec = ShvcDecoder(**kw) if two else Decoder(**kw)
+        _sync()
+        t0 = time.perf_counter()
+        pics = dec.decode(blob) + dec.flush()
+        _sync()
+        return pics, time.perf_counter() - t0
+
+    with patched(MeshFrameDecoder, "reconstruct_wave", spy):
+        decode(first_frames(data, 4 if two else 2))            # warm-up
+        waves.clear()
+        for f in counters.values():
+            f.launches = 0
+        pics, dt = decode(data)
+        launches = {n: f.launches for n, f in counters.items()}
+    got = hash_pics(pics)
+    times = {"wave": [dt], "one": []}
+    for label, m in (("one", None), ("wave", mesh)):
+        p, t = decode(data, m)
+        if hash_pics(p) != want:
+            raise AssertionError(f"waves: {name}, timed pass {label} "
+                                 f"differs from the md5 sidecar")
+        times[label].append(t)
+    n_ok = sum(g == w for g, w in zip(got, want))
+    predicted = sum(m[2] for w in waves for m in w)
+    hist = {}
+    for w in waves:
+        key = f"{'inter' if any(m[1] for m in w) else 'intra'}_{len(w)}"
+        hist[key] = hist.get(key, 0) + 1
+    axis = "tile axis" if n_tile > 1 else "frame axis"
+    out = {"frames": len(pics), "md5_ok": n_ok, "launches": launches,
+           "predicted": predicted, "waves": len(waves),
+           "wave_sizes": dict(sorted(hist.items())),
+           "fps": len(pics) * len(times["wave"]) / sum(times["wave"]),
+           "one_device_fps": len(pics) / times["one"][0],
+           "phase4_fps": PHASE4_FPS[name],
+           "pocs": [[m[0] for m in w] for w in waves]}
+    print(f"phase6 {axis} {name}: md5 {n_ok}/{len(want)} frames equal the "
+          f"sidecar ({len(pics)} decoded in {len(waves)} waves, sizes "
+          f"{json.dumps(out['wave_sizes'])}; launches {launches}, "
+          f"predicted {predicted} {KERNEL_OF[name]}); decode fps on the "
+          f"device {out['fps']} (mean of 2 passes; one device, between "
+          f"them: {out['one_device_fps']}; phase 4: {out['phase4_fps']})",
+          flush=True)
+    if len(pics) != len(want) or n_ok != len(want):
+        raise AssertionError(f"waves, {axis}: {name} differs from the md5 "
+                             f"sidecar")
+    need = {n: predicted if n == KERNEL_OF[name] else 0 for n in counters}
+    if launches != need or predicted == 0:
+        raise AssertionError(f"waves, {axis}: {name} launched {launches}, "
+                             f"predicted {need}")
+    return out
+
+
+def check_tile_shard(reps=REPS):
+    """Phase 6: the banded kernel on tile shard 0 (of WAVE_GRID[1]) of
+    ra_tiles_1080p frame 0: the group's jobs with their levels
+    renumbered densely == the plain version on the shard's first
+    PLAIN_BANDS bands == the serial-order entry on the whole shard,
+    timed beside the kernel on the whole frame. Returns the record."""
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops.intra_fused import intra_fused_banded_ref
+    from openhevc_tpu_torch.parallel.mesh import tile_group_map
+    fs = parse_only(first_frames(load_stream("ra_tiles_1080p")[0], 1))[0]
+    n_tile = WAVE_GRID[1]
+    gmap = tile_group_map(fs, n_tile)
+    k = TorchEngine("cuda").prepare(fs, shard=(gmap, 0))
+    if k["bounds"] is None or not 0 < k["n"] < n_jobs(fs):
+        raise AssertionError(f"ra_tiles_1080p frame 0, tile shard 0: "
+                             f"{k['n']} of {n_jobs(fs)} jobs, bounds "
+                             f"{k['bounds']}")
+    head = _head(k, PLAIN_BANDS)
+    out_k = _run_kernel(k, True, head=head)
+    out_p = [k["luma"].clone(), k["chroma"].clone()]
+    plain_ms = _elapsed_ms(lambda: intra_fused_banded_ref(
+        k["meta"], head[1], head[0], *out_p, k["res_l"], k["res_c"],
+        k["bd"]))
+    err = max(_max_err(out_k, out_p),
+              _max_err(_run_kernel(k, True), _run_serial(k)))
+    if err != 0:
+        raise AssertionError(f"intra_fused_banded on a tile shard differs "
+                             f"from its plain version or the serial-order "
+                             f"entry by up to {err}")
+    n_levels = int(k["level_bounds"].numel()) - 1
+    whole = TorchEngine("cuda").prepare(fs)
+    ms_s, ms_w = [], []
+    for _ in range(reps):          # alternate the shard and the frame
+        ms_s.append(_kernel_ms(k, True, 1))
+        ms_w.append(_kernel_ms(whole, True, 1))
+    ms, frame_ms = sum(ms_s) / reps, sum(ms_w) / reps
+    rec = {"poc": fs.poc, "tile_groups": n_tile, "jobs": k["n"],
+           "frame_jobs": n_jobs(fs), "n_levels": n_levels,
+           "frame_levels": int(fs.native_raw["n_levels"]),
+           "plain_jobs": head[0], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": _bound_ms(fs, k),
+           "us_per_level": ms * 1e3 / n_levels, "frame_ms": frame_ms}
+    print(f"phase6 intra_fused_banded on tile shard 0 of {n_tile} of "
+          f"ra_tiles_1080p POC {fs.poc} ({k['n']} of {n_jobs(fs)} jobs, "
+          f"{n_levels} dense levels of the frame's {rec['frame_levels']}) "
+          f"== plain on bands 0-{PLAIN_BANDS - 1} ({head[0]} jobs) == "
+          f"serial-order entry: max_abs_err {err}; {ms} ms (the whole "
+          f"frame: {frame_ms} ms)", flush=True)
+    return rec
+
+
+def run_waves(counters):
+    """Phase 6: the frame axis and the 2-D mesh, then the tile shard's
+    kernel. Returns ({(axis, stream): result}, tile-shard record)."""
+    frame, grid = wave_meshes()
+    out = {}
+    for name in ("i_main", "ra_main_1080p", "ra_main10_4k", "shvc_2layer"):
+        out["frame", name] = wave_decode(name, frame, counters)
+    sizes = out["frame", "i_main"]["pocs"]
+    if any(len(w) != WAVE_FRAMES for w in sizes):
+        raise AssertionError(f"waves: i_main in waves of "
+                             f"{[len(w) for w in sizes]}")
+    inter = [k for k in out["frame", "ra_main_1080p"]["wave_sizes"]
+             if k.startswith("inter_") and int(k[6:]) >= 3]
+    if not inter:
+        raise AssertionError("waves: ra_main_1080p has no inter wave of 3 "
+                             "or more pictures")
+    for name in ("ra_tiles_1080p", "i_main"):
+        out["tile", name] = wave_decode(name, grid, counters)
+    return out, check_tile_shard()
+
+
 def run():
-    """Phases 3-6 on the card; returns the kernel records."""
+    """Phases 3-7 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
@@ -1042,7 +1254,19 @@ def run():
     recs["intra_fused"]["main10_4k_frame0_whole_layout"] = {
         k: nbp[k] for k in ("ms", "bound_ms", "jobs")}
 
-    # ---- phase 6: report ---------------------------------------------------
+    # ---- phase 6: picture waves over a device mesh -----------------------
+    waves, shard = run_waves(counters)
+    for axis, route in (("frame", "waves_frame_axis"),
+                        ("tile", "waves_tile_axis")):
+        for kernel, r in recs.items():
+            r["launches_by_route"][route] = sum(
+                w["launches"][kernel] for (a, _), w in waves.items()
+                if a == axis)
+    r = recs["intra_fused_banded"]
+    r["max_abs_err"] = max(r["max_abs_err"], shard["max_abs_err"])
+    r["tile_shard_ra_tiles_1080p"] = shard
+
+    # ---- phase 7: report ---------------------------------------------------
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
     for name, by_mode in modes.items():
@@ -1087,6 +1311,18 @@ def run():
     for label, row in cli.items():
         print(f"cli .{label} {row['frames']} frames md5-exact, "
               f"{row['process_seconds']} s for the process")
+    for (axis, name), w in waves.items():
+        print(f"waves {axis} axis {name} decode_fps_device_resident "
+              f"{w['fps']} (one device, in turns: {w['one_device_fps']}; "
+              f"phase 4: {w['phase4_fps']}); {w['waves']} waves "
+              f"{json.dumps(w['wave_sizes'])}")
+    print(f"tile_shard intra_fused_banded_kernel_ms {shard['ms']} "
+          f"(ra_tiles_1080p POC {shard['poc']}, shard 0 of "
+          f"{shard['tile_groups']}: {shard['jobs']} of {shard['frame_jobs']} "
+          f"jobs, {shard['n_levels']} levels, {shard['us_per_level']} us a "
+          f"level; plain {shard['plain_ms']} ms on {shard['plain_jobs']} "
+          f"jobs; bound {shard['bound_ms']} ms; the whole frame "
+          f"{shard['frame_ms']} ms)")
     for r in recs.values():
         print(f"{r['name']}_launches_by_route "
               f"{json.dumps(r['launches_by_route'])}", flush=True)

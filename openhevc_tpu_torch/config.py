@@ -32,6 +32,10 @@ class DecoderConfig:
     temporal_layer: int | None = None  # "temporal-layer-id"
     strict: bool = False               # err_recognition AV_EF_EXPLODE
 
+    # -- parallel scale-out ----------------------------------------------
+    mesh: object | None = None         # parallel.DeviceMesh (frame[,tile])
+    wave_depth: int | None = None      # max pictures per wave
+
     @classmethod
     def from_env(cls, **overrides) -> "DecoderConfig":
         """Config with OPENHEVC_* environment fallbacks applied to any

@@ -4,7 +4,8 @@ hevc.c:3831/3288, and output bumping, hevc_refs.c:182.)
 
 Reconstruction runs in the PyTorch engine (models/pipeline.py
 TorchEngine) on one torch device: the card by default, the CPU only when
-the caller asks for it.
+the caller asks for it; or, given a `parallel.DeviceMesh`, in waves of
+independent pictures over the mesh's devices (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -28,6 +29,15 @@ NAL_AUD, NAL_EOS, NAL_EOB, NAL_FD = 35, 36, 37, 38
 NAL_SEI_PREFIX, NAL_SEI_SUFFIX = 39, 40
 
 
+def _mesh_type(mesh):
+    """mesh, if it is a `parallel.DeviceMesh`; else TypeError."""
+    from .parallel import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh: want an openhevc_tpu_torch.parallel."
+                        f"DeviceMesh, got {type(mesh).__name__}")
+    return mesh
+
+
 def split_nals(data: bytes):
     """Annex-B start-code scan (role of ff_hevc_extract_rbsp's caller)."""
     out = []
@@ -45,6 +55,15 @@ def split_nals(data: bytes):
         out.append(data[start:end])
         i = start
     return out
+
+
+class _IlRef:
+    """Wave-refs shim: an inter-layer reference rides the pinned-refs
+    map like a DecodedPicture (only .planes is read at wave recon)."""
+    __slots__ = ("planes",)
+
+    def __init__(self, planes):
+        self.planes = planes
 
 
 @dataclass
@@ -67,30 +86,41 @@ class DecodedPicture:
 
 
 class Decoder:
-    def __init__(self, device: str = "cuda", layer: int = 0, mesh=None,
+    def __init__(self, device: str | None = None, layer: int = 0, mesh=None,
                  engine: str = "torch",
                  temporal_layer: int | None = None, strict: bool = False,
                  nb_threads: int | None = None, thread_type: int = 3,
-                 config=None, native_parse: bool = True):
+                 config=None, native_parse: bool = True,
+                 wave_depth: int | None = None):
         """device: torch device of the reconstruction ("cuda" by default;
-        "cpu" only when asked for — there is no fallback).
+        "cpu" only when asked for — there is no fallback); with a mesh,
+        the device of the host-side helpers (the SHVC inter-layer
+        upsample), by default the mesh's first device.
         layer: nuh_layer_id this decoder handles.
+        mesh: a `parallel.DeviceMesh` with a "frame" axis (and an
+        optional "tile" axis): independent pictures batch into waves
+        reconstructed over its devices (parallel/mesh.py, the
+        pthread_frame.c:325 analogue).
+        wave_depth: max pictures per wave (default: the mesh's frame
+        axis size).
         native_parse: parse slices with the native C++ core (built at
         first use); False sends every slice to the Python parser
         (`SliceDataParser`). With True, a slice the core refuses is
         parsed in Python all the same (counted in stats["python_slices"]).
-        mesh / engine != "torch": not ported (NotImplementedError).
+        engine != "torch": not ported (NotImplementedError).
         config: DecoderConfig — the single typed knob home (SURVEY §5);
         keyword arguments above override its fields for compatibility."""
         from .config import DecoderConfig
         if config is None:
+            if device is None:
+                device = "cuda" if mesh is None else \
+                    str(_mesh_type(mesh).devices.flat[0])
             config = DecoderConfig.from_env(
                 engine=engine, device=device, nb_threads=nb_threads,
                 thread_type=thread_type, temporal_layer=temporal_layer,
-                strict=strict)
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device waves: ROADMAP.md Queue 1 item 11")
+                strict=strict, mesh=mesh, wave_depth=wave_depth)
+        if config.mesh is not None:
+            _mesh_type(config.mesh)
         if config.engine != "torch":
             raise NotImplementedError(
                 f"engine {config.engine!r}: the port has only the torch "
@@ -103,6 +133,10 @@ class Decoder:
         self.config = config
         self.device = dev
         self.engine = config.engine
+        self.mesh = config.mesh
+        self._wave_sched = None         # WaveScheduler (mesh wave path)
+        self._wave_depth = config.wave_depth
+        self._mesh_dec = None
         self.layer = layer
         self.shvc_bl: Decoder | None = None   # the BL decoder of an EL
         # sub-layer selection: VCL NALs with temporal_id above this are
@@ -537,6 +571,40 @@ class Decoder:
         snapshot pins the reference pictures this picture needs, so
         later IDR resets / evictions cannot invalidate the deferred
         reconstruct."""
+        # mesh wave path (pthread_frame.c:325 analogue): pictures whose
+        # references all lie OUTSIDE the current wave batch into one
+        # wave over the mesh — intra pictures always qualify; inter
+        # pictures qualify until one references a wave member (the
+        # WaveScheduler then flushes and starts a new wave). In a
+        # hierarchical-B GOP the same-level B pictures form waves.
+        if self.mesh is not None:
+            if self._wave_sched is None:
+                from .parallel import WaveScheduler
+                self._wave_sched = WaveScheduler(self._wave_max())
+            used = (set(fs.ref_poc_l0) | set(fs.ref_poc_l1)) \
+                if fs.inter_pbs else set()
+            src = self.ref_pics if pins is None else \
+                {**self.ref_pics, **pins}
+            refs_pin = {p: src[p] for p in used if p in src}
+            if il:
+                # SHVC EL: the inter-layer reference is an already-
+                # upsampled planes object of the SAME AU — never a wave
+                # member of THIS decoder, so it adds no wave dependency
+                # and EL pictures batch like any others (the
+                # pthread_frame.c:516-624 concurrent-layer analogue)
+                for p, pl in il.items():
+                    refs_pin[p] = _IlRef(pl)
+            w = self._wave_sched
+            if len(w) and w._wave[0][1][0].sps is not sps:
+                self._flush_wave()
+            flushed = w.add(id(pic),
+                            {id(o) for o in refs_pin.values()},
+                            (fs, pic, refs_pin))
+            if flushed:
+                self._recon_wave(flushed)
+            if len(w) >= self._wave_max():
+                self._recon_wave(w.flush())
+            return
         src = self.ref_pics if pins is None else \
             {**self.ref_pics, **pins}
         refs = {p: rp.planes for p, rp in src.items()
@@ -560,6 +628,38 @@ class Decoder:
             pic.planes = self._reconstruct(fs, refs)
         self.timers.frame_done()
         self._bump(pic, pic.sps)
+
+    def _wave_max(self):
+        if self._wave_depth is not None:
+            return self._wave_depth
+        return int(self.mesh.shape["frame"])
+
+    def _flush_wave(self):
+        if self._wave_sched is not None:
+            self._recon_wave(self._wave_sched.flush())
+
+    def _recon_wave(self, entries):
+        """Reconstruct a flushed wave over the mesh (parallel/mesh.py)
+        and bump in decode order. entries: [(key, (fs, pic, refs_pin))]
+        from the WaveScheduler. Every picture comes back filtered: on
+        the device, or on the host where its filters lie outside the
+        whole-frame device model."""
+        if not entries:
+            return
+        self._flush_pending()       # pending picture is always older
+        if self._mesh_dec is None:
+            from .parallel import MeshFrameDecoder
+            self._mesh_dec = MeshFrameDecoder(self.mesh)
+        fs_list = [fs for _, (fs, _pic, _rp) in entries]
+        refs_list = [{p: o.planes for p, o in rp.items()
+                      if o.planes is not None}
+                     for _, (_fs, _pic, rp) in entries]
+        with self.timers.stage("kernel"):
+            outs, _ = self._mesh_dec.reconstruct_wave(fs_list, refs_list)
+        for (_, (fs, pic, _rp)), planes in zip(entries, outs):
+            pic.planes = planes
+            self.timers.frame_done()
+            self._bump(pic, pic.sps)
 
     def _missing_ref(self, poc, sps):
         """Concealment frame: mid-gray planes + zero motion
@@ -608,6 +708,7 @@ class Decoder:
         bl_pic = bl.ref_pics.get(poc)
         if bl_pic is not None and bl_pic.planes is None:
             bl._flush_pending()             # BL picture still pending
+            bl._flush_wave()                # ... or in the BL's wave
         if bl_pic is None or bl_pic.planes is None:
             return None
         from .models.pipeline import TorchPlanes
@@ -770,6 +871,7 @@ class Decoder:
     def flush(self):
         self._drain_parse_all()
         self._flush_pending()
+        self._flush_wave()
         out = self.output + self.dpb
         self.output, self.dpb = [], []
         return out
@@ -786,10 +888,12 @@ class ShvcDecoder:
 
     layer_class = Decoder        # the single-layer decoder of each layer
 
-    def __init__(self, device: str = "cuda", nb_threads: int | None = None,
-                 thread_type: int = 3, config=None, mesh=None):
+    def __init__(self, device: str | None = None,
+                 nb_threads: int | None = None, thread_type: int = 3,
+                 config=None, mesh=None):
         """device: torch device of both layers ("cuda" by default; "cpu"
-        only when asked for). mesh: not ported (NotImplementedError)."""
+        only when asked for). mesh: a `parallel.DeviceMesh` both layers
+        reconstruct their waves over (`Decoder`)."""
         kw = dict(device=device, nb_threads=nb_threads,
                   thread_type=thread_type, config=config, mesh=mesh)
         self.bl = self.layer_class(**kw)

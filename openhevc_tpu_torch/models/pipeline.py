@@ -60,6 +60,11 @@ route chosen by what the picture is, before any launch:
     picture, uploaded where a later picture predicts from it.
 Monochrome, unequal luma / chroma depths and depths outside 8-12 bits
 raise NotImplementedError (`check_slice`).
+
+A tile shard of a picture (parallel/mesh.py, the tile axis of a device
+mesh: `reconstruct(shard=(gmap, g))`) runs steps 1-5 with the residual
+TUs and intra jobs of tile group g only and stops before step 6: the
+mesh combines the shards, then filters.
 """
 from __future__ import annotations
 
@@ -77,8 +82,9 @@ from ..ops.idct import residual_bucket
 from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
                                derive_meta16, intra_fused,
                                intra_fused_banded, level_schedule,
-                               meta6_native, meta6_objects, padded_dims,
-                               sort_meta_by_band)
+                               meta6_native, meta6_objects,
+                               meta6_tile_group, padded_dims,
+                               sort_meta_by_band, tile_group_of)
 from ..ops.mc import (combine_plane, combine_plane_w, mc_hprefilter,
                       mc_prefilter_pairs, mc_put_core, mc_put_pairs_core,
                       stage1_shape)
@@ -330,13 +336,16 @@ def _arena_levels(arena4, arena16, escs, caps):
         yield s, cap, x, y, qpf, sm, lvf.reshape(cap, s, s).to(torch.int32)
 
 
-def _residual_acc(arena4, arena16, escs, *, caps, H, W, Hc, Wc, bd):
+def _residual_acc(arena4, arena16, escs, *, caps, H, W, Hc, Wc, bd,
+                  group=None):
     """Residual planes of one picture: (acc_l [H, W], acc_c [2, Hc, Wc])
     int32, or (None, None) when it has no residual. TUs of size s are
     s-aligned, so each lands in one cell of a [hg * wg, s, s] slot grid;
     rows that belong to another plane, and the packers' padding rows
     (FAR coordinates), are masked to a zero add at slot 0 instead of
-    JAX's dropped out-of-range scatter."""
+    JAX's dropped out-of-range scatter. group: (gmap [ctbs_h, ctbs_w]
+    on the device, g, log2_ctb, hs, vs) keeps only the TUs of tile group
+    g (`tile_group_of`), as a tile shard of parallel/mesh.py wants."""
     acc_l = acc_c = None
     for s, cap, x, y, qpf, sm, lv in _arena_levels(arena4, arena16, escs,
                                                    caps):
@@ -346,6 +355,10 @@ def _residual_acc(arena4, arena16, escs, *, caps, H, W, Hc, Wc, bd):
                             (qpf >> 4) & 1 != 0, (qpf >> 5) & 1 != 0,
                             (qpf >> 6) & 1 != 0, s=s, bit_depth=bd, sm=sm)
         inside = (x >= 0) & (y >= 0)
+        if group is not None:
+            gmap, g, log2_ctb, hs, vs = group
+            inside = inside & (tile_group_of(gmap, plane, x, y, log2_ctb,
+                                             hs, vs) == g)
         for c in range(3):
             ph, pw = (H, W) if c == 0 else (Hc, Wc)
             hg, wg = -(-ph // s), -(-pw // s)
@@ -540,6 +553,25 @@ def crop_pack(luma, chroma, H, W, Hc, Wc, bd):
     return torch.cat([luma[OY:OY + H, OX:OX + W].reshape(-1),
                       chroma[:, OY:OY + Hc, OX:OX + Wc].reshape(-1)]) \
         .to(dt)
+
+
+def pack_planes(y, cb, cr, bd):
+    """Un-padded int32 planes -> flat [Y | Cb | Cr] (`crop_pack`'s
+    dtypes)."""
+    dt = torch.uint8 if bd <= 8 else torch.uint16
+    return torch.cat([y.reshape(-1), cb.reshape(-1), cr.reshape(-1)]).to(dt)
+
+
+def host_filtered(fs: FrameSymbols, flat, H, W, Hc, Wc):
+    """The unfiltered flat output `flat` of a picture fetched, filtered
+    on the host on the reference's CTB schedule (ops/filters_sched.py)
+    and kept there: the route of a picture whose filters lie outside the
+    whole-frame device model (`prep_filters` returns None)."""
+    planes = TorchPlanes(flat, H, W, Hc, Wc).get()
+    out = apply_loop_filters(planes, fs)
+    host = np.concatenate([p.reshape(-1) for p in out]) \
+        .astype(planes[0].dtype)
+    return TorchPlanes(torch.from_numpy(host), H, W, Hc, Wc)
 
 
 def check_slice(fs: FrameSymbols):
@@ -872,7 +904,7 @@ class TorchEngine:
 
     # ---- one picture ---------------------------------------------------------
 
-    def reconstruct(self, fs: FrameSymbols, ref_planes=None) -> TorchPlanes:
+    def reconstruct(self, fs: FrameSymbols, ref_planes=None, shard=None):
         """Reconstruct one parsed picture; the output stays on the
         device and nothing is read back from it, bar a picture whose
         in-loop filters lie outside the whole-frame device model: its
@@ -881,8 +913,27 @@ class TorchEngine:
         stays on the host (timed as "host_filters"). ref_planes: {poc:
         planes} of the pictures the decoder holds as references (decoded
         pictures as `TorchPlanes`, read where they lie; host-only
-        concealment frames as [Y, Cb, Cr] arrays)."""
+        concealment frames as [Y, Cb, Cr] arrays). Returns a
+        `TorchPlanes`.
+
+        shard=(gmap, g): one tile shard of the picture
+        (parallel/mesh.py): only the residual TUs and intra jobs of the
+        CTBs whose gmap [ctbs_h, ctbs_w] entry is g (`prepare`); the
+        inter prediction and the PCM samples of the whole picture. It
+        stops after the kernel, before the filters, and returns
+        `prepare`'s dict with the planes reconstructed in place: its
+        samples are right inside group g's CTBs only."""
+        if shard is not None:
+            k = self.prepare(fs, ref_planes, shard=shard)
+            self.launch(k)
+            return k
         k = self.prepare(fs, ref_planes)
+        self.launch(k)
+        return self.finish(fs, k)
+
+    def launch(self, k: dict):
+        """The fused intra kernel on `prepare`'s arguments k (planes
+        updated in place): whole-frame or banded, as k's plan says."""
         tail = (k["luma"], k["chroma"], k["res_l"], k["res_c"], k["bd"],
                 k["order"], k["level_bounds"])
         with self._stage("kernel"):
@@ -890,18 +941,18 @@ class TorchEngine:
                 intra_fused(k["meta"], k["n"], *tail)
             else:
                 intra_fused_banded(k["meta"], k["bounds"], k["n"], *tail)
-        # in-loop filters on the un-padded views where the picture wants
-        # them; crop; downcast
+
+    def finish(self, fs: FrameSymbols, k: dict) -> TorchPlanes:
+        """Steps 6-7 after `launch`: in-loop filters on the un-padded
+        views where the picture wants them (on the device, or the
+        host-filter route), crop, downcast."""
         H, W, Hc, Wc = k["dims"]
         bd, f = k["bd"], k["filters"]
         if k["host_filters"]:
             with self._stage("host_filters"):
-                planes = TorchPlanes(crop_pack(k["luma"], k["chroma"], H, W,
-                                               Hc, Wc, bd), H, W, Hc, Wc).get()
-                out = apply_loop_filters(planes, fs)
-                flat = np.concatenate([p.reshape(-1) for p in out]) \
-                    .astype(planes[0].dtype)
-            return TorchPlanes(torch.from_numpy(flat), H, W, Hc, Wc)
+                return host_filtered(fs, crop_pack(k["luma"], k["chroma"], H,
+                                                   W, Hc, Wc, bd), H, W, Hc,
+                                     Wc)
         if f is None:
             with self._stage("crop_pack"):
                 flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, bd)
@@ -914,12 +965,10 @@ class TorchEngine:
                 do_sao=f["do_sao"], hs=k["hs"], vs=k["vs"],
                 stage=self._stage)
             with self._stage("crop_pack"):
-                dt = torch.uint8 if bd <= 8 else torch.uint16
-                flat = torch.cat([y.reshape(-1), cb.reshape(-1),
-                                  cr.reshape(-1)]).to(dt)
+                flat = pack_planes(y, cb, cr, bd)
         return TorchPlanes(flat, H, W, Hc, Wc, device_filtered=f is not None)
 
-    def prepare(self, fs: FrameSymbols, ref_planes=None) -> dict:
+    def prepare(self, fs: FrameSymbols, ref_planes=None, shard=None) -> dict:
         """Steps 1-5 up to the intra kernel: the kernel's arguments
         (meta, n, luma, chroma, res_l, res_c, bd, order, level_bounds,
         and bounds, None for the whole-frame kernel) plus the frame dims
@@ -935,7 +984,14 @@ class TorchEngine:
         prediction + residual; without one (none of its references is
         among ref_planes), zeros, as the JAX package's packed path leaves
         inter blocks then; on any picture, its PCM samples written over
-        that; elsewhere 0. Intra pixels are 0."""
+        that; elsewhere 0. Intra pixels are 0.
+
+        shard=(gmap, g) (`reconstruct`): the meta is cut to group g's
+        jobs on the host before the upload (`meta6_tile_group`: levels
+        renumbered densely; band sorted after the cut on a banded plan),
+        gmap rides in the upload and the residual keeps group g's TUs
+        only; no filter data is made (`filters` None, `host_filters`
+        False): the mesh filters the combined picture."""
         check_slice(fs)
         sps = fs.sps
         H, W = sps.height, sps.width
@@ -948,21 +1004,28 @@ class TorchEngine:
         # ---- host side: everything that rides in the one upload ----------
         with self._stage("host_pack"):
             npk = host_pack(fs)
-            n = npk["n"]
-            host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
+            n, meta6, n_levels = npk["n"], npk["meta6"], npk["n_levels"]
+            if shard is not None:
+                gmap, g = shard
+                meta6, n, n_levels = meta6_tile_group(
+                    meta6, n, gmap, g, sps.log2_ctb, hs, vs)
+            host = [npk["arena4"], npk["arena16"], npk["esc"], meta6]
             at = {}
+            if shard is not None:
+                at["gmap"] = len(host)
+                host.append(np.ascontiguousarray(gmap, np.int32))
             smap = ccp_scale_map(fs)
             if smap is not None:
                 at["ccp"] = len(host)
                 host.append(smap)
             if plan[0] == "banded":
-                host[3], bounds = sort_meta_by_band(npk["meta6"], n, plan[2],
-                                                    vs, plan[3])
+                host[3], bounds = sort_meta_by_band(meta6, n, plan[2], vs,
+                                                    plan[3])
                 check_rising(bounds, n, "bounds")
                 at["bounds"] = len(host)
                 host.append(bounds)
-            want_filters = not fs.deblock_disabled or fs.sao_luma or \
-                fs.sao_chroma
+            want_filters = shard is None and (
+                not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma)
             pff = prep_filters(fs) if want_filters else None
             if pff is not None:
                 at["fargs"] = len(host)
@@ -985,9 +1048,11 @@ class TorchEngine:
         bounds = dev[at["bounds"]] if "bounds" in at else None
 
         with self._stage("residual"):
+            group = None if shard is None else \
+                (dev[at["gmap"]], shard[1], sps.log2_ctb, hs, vs)
             acc_l, acc_c = _residual_acc(arena4, arena16, escs,
                                          caps=npk["caps"], H=H, W=W, Hc=Hc,
-                                         Wc=Wc, bd=bd)
+                                         Wc=Wc, bd=bd, group=group)
             if "ccp" in at and acc_l is not None:
                 acc_c = _apply_ccp(acc_l, acc_c, dev[at["ccp"]])
             res_l = torch.zeros((hl, wl), dtype=torch.int32,
@@ -1019,8 +1084,7 @@ class TorchEngine:
             chroma.view(-1)[ic.long()] = vc.to(torch.int32)
 
         with self._stage("meta_schedule"):
-            order, level_bounds = level_schedule(meta6[5], n,
-                                                 npk["n_levels"])
+            order, level_bounds = level_schedule(meta6[5], n, n_levels)
             meta16 = derive_meta16(
                 meta6[:5],
                 sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),

@@ -573,11 +573,16 @@ def _expand_ctb(a, cs, H: int, W: int):
 
 
 def _sao_component(pl, typ, second, offs, cs, bd: int,
-                   vstage=None, st_b0=None, st_b2=None, st_a3=None):
+                   vstage=None, st_b0=None, st_b2=None, st_a3=None,
+                   ybounds=None):
     """SAO one component. pl [H, W] int32 (deblocked input); typ/second
     [cH, cW]; offs [cH, cW, 4]. vstage/stale: 16x16-CTB chroma halo
     timing: neighbour reads in the +x direction of `stale` positions
-    source the vertical-deblock-stage plane."""
+    source the vertical-deblock-stage plane. ybounds: (ytop, ybot), the
+    TRUE picture rows in this plane's coordinates when pl is a halo band
+    of a larger frame (the mesh's band-sharded filters); the edge
+    classes' border restrictions apply there instead of at the array
+    edges."""
     H, W = pl.shape
     maxv = (1 << bd) - 1
     typ_px = _expand_ctb(typ, cs, H, W)
@@ -622,10 +627,11 @@ def _sao_component(pl, typ, second, offs, cs, bd: int,
                 torch.where(idx == 1, o[1], 0) +
                 torch.where(idx == 3, o[2], 0) +
                 torch.where(idx == 4, o[3], 0))
+        ytop, ybot = (0, H) if ybounds is None else ybounds
         valid = ((xx >= max(0, -min(ax, bx, 0))) &
                  (xx < W - max(ax, bx, 0)) &
-                 (yy >= -min(ay, by, 0)) &
-                 (yy < H - max(ay, by, 0)))
+                 (yy >= ytop - min(ay, by, 0)) &
+                 (yy < ybot - max(ay, by, 0)))
         res = torch.where(valid, (pl + eadd).clamp(0, maxv), pl)
         out_edge = torch.where(sec_px == eo, res, out_edge)
 
@@ -637,7 +643,7 @@ def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
                          tc_cv1, tc_ch1, tc_cv2, tc_ch2, sao,
                          nop_v, noq_v, nop_h, noq_h,
                          nop_cv, noq_cv, nop_ch, noq_ch, nf4, nf4c,
-                         st_b0, st_b2, st_a3,
+                         st_b0, st_b2, st_a3, ybounds=None,
                          *, bd, bdc, cs, do_deblock, do_sao, hs=1, vs=1,
                          stage=contextlib.nullcontext):
     """Whole-frame deblock (vertical then horizontal, luma + chroma)
@@ -647,11 +653,9 @@ def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
     absent); st_*: 16x16-CTB SAO chroma halo positions. hs/vs: chroma
     subsampling shifts (1,1=4:2:0; 1,0=4:2:2; 0,0=4:4:4). `stage(name)`
     is a context manager entered around "deblock" and "sao" (the
-    engine's stage timers).
-
-    The JAX package's `ybounds` argument (a halo band of a larger frame,
-    for its mesh's band-sharded filtering) is left out: it comes with
-    the multi-device waves."""
+    engine's stage timers). ybounds: ((ytop, ybot), (cytop, cybot)), the
+    picture's true luma and chroma rows when y / cb / cr are a halo band
+    of a larger frame (parallel/mesh.py `band_filters`), else None."""
     vst_cb = vst_cr = None
     if do_deblock:
         with stage("deblock"):
@@ -670,15 +674,16 @@ def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
         with stage("sao"):
             pre_y, pre_cb, pre_cr = y, cb, cr
             csc = (cs >> vs, cs >> hs)     # chroma CTB (rows, cols)
+            yb, cyb = (None, None) if ybounds is None else ybounds
             s32 = sao.to(torch.int32)
             y = _sao_component(y, s32[:, :, 0, 0], s32[:, :, 0, 1],
-                               s32[:, :, 0, 2:6], cs, bd)
+                               s32[:, :, 0, 2:6], cs, bd, ybounds=yb)
             cb = _sao_component(cb, s32[:, :, 1, 0], s32[:, :, 1, 1],
                                 s32[:, :, 1, 2:6], csc, bdc, vst_cb,
-                                st_b0, st_b2, st_a3)
+                                st_b0, st_b2, st_a3, ybounds=cyb)
             cr = _sao_component(cr, s32[:, :, 2, 0], s32[:, :, 2, 1],
                                 s32[:, :, 2, 2:6], csc, bdc, vst_cr,
-                                st_b0, st_b2, st_a3)
+                                st_b0, st_b2, st_a3, ybounds=cyb)
             if nf4.shape != (1, 1):
                 # restore_tqb_pixels: SAO writes to no-filter blocks
                 # revert to the deblocked input (4x4 luma /

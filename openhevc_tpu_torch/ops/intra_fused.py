@@ -13,6 +13,9 @@ module holds what surrounds them:
     so every neighbour read up to x + 2s stays in bounds;
   - the banded layout (`band_plan`) and the stable band sort of the
     job meta (`sort_meta_by_band`);
+  - the cut of a picture's jobs to one tile group, with the levels
+    renumbered densely (`meta6_tile_group`, `tile_group_of`: a tile
+    shard of parallel/mesh.py);
   - `derive_meta16`: the kernel's [16, npad] job meta from the 5 packed
     rows the native parser emits;
   - `level_schedule`: the jobs' order by wavefront level and the level
@@ -231,6 +234,42 @@ def meta6_objects(jobs, H: int, W: int):
     return (np.concatenate([pack_meta_objects(jobs),
                             level.astype(np.int16)[None, :]]),
             int(level.max()) if len(level) else 0)
+
+
+def tile_group_of(gmap, plane, x, y, log2_ctb: int, hs: int, vs: int):
+    """Tile group of each block at plane coordinates (x, y) of plane
+    `plane` (0 luma): gmap [ctbs_h, ctbs_w] (one group a CTB) read at the
+    CTB of the block's luma-grid position (chroma coordinates scale by
+    hs / vs), clipped into the grid. Works on numpy arrays and on torch
+    tensors alike (gmap on the blocks' device)."""
+    ch, cw = gmap.shape
+    chroma = plane != 0
+    cy = ((y << (chroma * vs)) >> log2_ctb).clip(0, ch - 1)
+    cx = ((x << (chroma * hs)) >> log2_ctb).clip(0, cw - 1)
+    return gmap[cy, cx]
+
+
+def meta6_tile_group(meta6: np.ndarray, n: int, gmap: np.ndarray, g: int,
+                     log2_ctb: int, hs: int, vs: int):
+    """The jobs of tile group g of a picture's [6, >= n] meta
+    (`meta6_native` layout: buffer y, x, packed size / plane / mode,
+    availability words, level), in their meta order, with their levels
+    renumbered densely (each level becomes its rank among the levels
+    left), so the level schedule gets no empty level. Returns (meta
+    [6, n_g] int16, n_g, n_levels_g).
+
+    The relative order and the order of levels are kept, so every
+    dependency still holds; the standard makes another tile's samples
+    unavailable, so no job of group g reads a sample that a job of
+    another group writes."""
+    m = meta6[:, :n]
+    plane = (m[2].astype(np.int32) >> 2) & 3
+    grp = tile_group_of(gmap, plane, m[1].astype(np.int32) - OX,
+                        m[0].astype(np.int32) - OY, log2_ctb, hs, vs)
+    out = np.ascontiguousarray(m[:, grp == g])
+    levels, rank = np.unique(out[5], return_inverse=True)
+    out[5] = rank.astype(np.int16) + 1
+    return out, out.shape[1], len(levels)
 
 
 def derive_meta16(meta8: torch.Tensor, sdis: bool, c444: bool,

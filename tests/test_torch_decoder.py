@@ -73,16 +73,22 @@ def test_outputs_stay_on_device_until_fetched():
     ("shvc_mesh", "multi-device waves.*Queue 1 item 11"),
 ])
 def test_outside_the_slice_raises(case, what):
-    """Of what this test once saw refused, a mesh still is (ROADMAP item
-    11). An inter picture with PCM blocks now decodes to the output of
-    the JAX package's packed path (`JaxEngine.reconstruct` on the same
-    symbols), and a picture from the Python parser decodes equal to the
-    encoder's reconstruction and `Decoder("np")`
-    (tests/test_torch_fallback.py holds both at length). For those two
-    cases `what` is the refusal they met before, kept as the test id."""
+    """Nothing this test once saw refused is refused now. An inter
+    picture with PCM blocks decodes to the output of the JAX package's
+    packed path (`JaxEngine.reconstruct` on the same symbols), a picture
+    from the Python parser decodes equal to the encoder's reconstruction
+    and `Decoder("np")` (tests/test_torch_fallback.py holds both at
+    length), and `ShvcDecoder` takes a `parallel.DeviceMesh` for both
+    layers (tests/test_torch_parallel.py decodes with it) while anything
+    else given as a mesh raises TypeError. `what` is the refusal each
+    case met before, kept as the test id."""
     from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
     if case == "shvc_mesh":
-        with pytest.raises(NotImplementedError, match=what):
+        from openhevc_tpu_torch.parallel import DeviceMesh
+        mesh = DeviceMesh(["cpu"] * 2)
+        dec = ShvcDecoder(device="cpu", mesh=mesh)
+        assert dec.bl.mesh is mesh and dec.el.mesh is mesh
+        with pytest.raises(TypeError, match="DeviceMesh"):
             ShvcDecoder(device="cpu", mesh=object())
     elif case == "python_parser":
         from openhevc_tpu.decoder import Decoder as NpDecoder
@@ -103,5 +109,5 @@ def test_unported_entry_points_raise():
     from openhevc_tpu_torch.decoder import Decoder
     with pytest.raises(NotImplementedError):
         Decoder(device="cpu", engine="np")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Decoder(device="cpu", mesh=object())

@@ -60,7 +60,9 @@ def test_no_jax_or_jax_package_imports():
                 "models/pipeline.py", "decoder.py", "ops/filters_sched.py",
                 "api.py", "__main__.py", "display.py",
                 "bitstream/au_parser.py", "container/mp4.py",
-                "container/ts.py", "container/mkv.py", "container/ogg.py"):
+                "container/ts.py", "container/mkv.py", "container/ogg.py",
+                "parallel/__init__.py", "parallel/frames.py",
+                "parallel/mesh.py"):
         assert os.path.join("openhevc_tpu_torch", mod) in names
     bad = [(os.path.relpath(f, ROOT), line, mod)
            for f in files for mod, line in _imports(f)
@@ -90,6 +92,8 @@ def test_import_leaves_jax_unloaded():
             "import openhevc_tpu_torch.container\n"
             "import openhevc_tpu_torch.display\n"
             "import openhevc_tpu_torch.ops.filters_sched\n"
+            "import openhevc_tpu_torch.parallel\n"
+            "import openhevc_tpu_torch.parallel.mesh\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'openhevc_tpu')]\n"
             "assert not bad, bad\n")

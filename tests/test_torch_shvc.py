@@ -297,8 +297,17 @@ def test_upsample_is_a_timed_stage():
 
 
 def test_shvc_entry_point_refuses_what_is_not_ported():
+    """A `parallel.DeviceMesh` is taken (both layers decode in waves
+    over it, their helpers on its first device when no device is given);
+    any other mesh raises TypeError; without a card the default device
+    raises."""
     from openhevc_tpu_torch.decoder import ShvcDecoder
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    from openhevc_tpu_torch.parallel import DeviceMesh
+    mesh = DeviceMesh(["cpu"] * 2)
+    dec = ShvcDecoder(mesh=mesh)
+    assert dec.bl.device == dec.el.device == torch.device("cpu")
+    assert dec.el.mesh is mesh and dec.el._wave_max() == 2
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ShvcDecoder(device="cpu", mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
