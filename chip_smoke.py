@@ -87,7 +87,12 @@ out). Phases (each one fails the run with a non-zero exit):
      group, levels renumbered densely) == its plain version on the
      shard's first PLAIN_BANDS bands == the serial-order entry on the
      whole shard, timed beside the kernel on the whole frame;
-  7. print decode rates (every timed pass is md5-checked too), stage
+  7. (new in slice 8) the bench script: `python3 bench_torch.py --only
+     i_main_832x480` as a subprocess must exit 0 with a JSON last line
+     in which i_main is md5-exact in every timed pass, its launches equal
+     phase 4's and its device is this card (the decoder helpers of this
+     script are bench_torch.py's);
+  8. print decode rates (every timed pass is md5-checked too), stage
      breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
      rate, MC stage 2, combine, kernel, deblock, SAO, crop, the
      inter-layer upsample, fetch; for shvc_2layer a frame is an
@@ -108,19 +113,17 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+
+# the helpers this script shares with the port's bench script
+from bench_torch import (CONFIGS, breakdown, build_all, decode_all,
+                         first_frames, hash_pics, layers, load_stream, n_jobs,
+                         parse_only, smoke_decoder, sync)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STREAMS = {"i_main": "r4a_i_main_832x480.265",
-           "main10_4k": "r4a_main10_4k.265",
-           "ra_main_1080p": "r4a_ra_main_1080p.265",
-           "ra_tiles_1080p": "r4a_ra_tiles_1080p.265",
-           "ra_main10_4k": "r4a_ra_main10_4k.265",
-           "rext_444": "r4a_rext_444_832x480.265",
-           "shvc_2layer": "r4a_shvc_2layer_832x480.265"}
-KERNEL_OF = {name: "intra_fused" if name in ("i_main", "shvc_2layer") else
-             "intra_fused_banded" for name in STREAMS}
-TWO_LAYERS = ("shvc_2layer",)
+KERNEL_OF = {name: "intra_fused" if name in ("i_main_832x480",
+                                            "shvc_2layer_832x480") else
+             "intra_fused_banded" for name, _kind, _frames in CONFIGS}
+TWO_LAYERS = tuple(name for name, kind, _frames in CONFIGS if kind == "shvc")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 REPS = 5
 REPEATS = 20        # launches in a row that must give identical planes
@@ -135,45 +138,6 @@ FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
 PHASE4_FPS = {}     # stream -> decode fps of its phase-4 decode
 
 
-def load_stream(name):
-    path = os.path.join(ROOT, "bench_streams", STREAMS[name])
-    return open(path, "rb").read(), open(path + ".md5").read().split()
-
-
-def first_frames(data: bytes, k: int) -> bytes:
-    """The stream cut after its k-th VCL NAL (one slice per picture)."""
-    from openhevc_tpu_torch.decoder import split_nals
-    out, vcl = [], 0
-    for nal in split_nals(data):
-        if ((nal[0] >> 1) & 0x3F) <= 31:
-            if vcl == k:
-                break
-            vcl += 1
-        out.append(b"\x00\x00\x00\x01" + nal)
-    return b"".join(out)
-
-
-def hash_pics(pics):
-    """Per-frame md5 of the cropped Y, U, V planes, as bench.py hashes:
-    uint8 samples, or uint16 when the bit depth is above 8."""
-    import numpy as np
-    hs = []
-    for p in pics:
-        dt = np.uint16 if p.sps.bit_depth > 8 else np.uint8
-        h = hashlib.md5()
-        for plane in p.cropped():
-            h.update(np.ascontiguousarray(np.asarray(plane, dt)).tobytes())
-        hs.append(h.hexdigest())
-    return hs
-
-
-def n_jobs(fs) -> int:
-    """Intra jobs of a parsed picture, from either parser."""
-    if fs.native_raw is not None:
-        return len(fs.native_raw["ij_meta"])
-    return len(fs.intra_jobs)
-
-
 @contextlib.contextmanager
 def patched(obj, name, value):
     """obj.name = value inside the block (a route forced for a phase)."""
@@ -183,39 +147,6 @@ def patched(obj, name, value):
         yield
     finally:
         setattr(obj, name, old)
-
-
-def parse_only(data: bytes, native_parse=True):
-    """Parsed FrameSymbols of every picture (no reconstruction)."""
-    from openhevc_tpu_torch.decoder import Decoder
-
-    class _Parse(Decoder):
-        def _reconstruct(self, fs, refs):
-            self.parsed.append(fs)
-
-    d = _Parse(device="cuda", native_parse=native_parse)
-    d.parsed = []
-    d.decode(data)
-    d.flush()
-    return d.parsed
-
-
-def build_all():
-    """Build every kernel library and the parse core concurrently;
-    returns {name: nvcc report}."""
-    from openhevc_tpu_torch import kernels
-    from openhevc_tpu_torch.bitstream.native import ensure_built
-    with ThreadPoolExecutor(len(kernels.SOURCES) + 1) as ex:
-        futs = {n: ex.submit(kernels.build, n) for n in kernels.SOURCES}
-        parser = ex.submit(ensure_built)
-        reports = {n: f.result() for n, f in futs.items()}
-        parser.result()
-    return reports
-
-
-def _sync():
-    import torch
-    torch.cuda.synchronize()
 
 
 def _elapsed_ms(fn):
@@ -282,7 +213,7 @@ def _kernel_ms(k, banded, reps):
     times = []
     for _ in range(reps):
         bufs = [k["luma"].clone(), k["chroma"].clone()]
-        _sync()
+        sync()
         times.append(_elapsed_ms(lambda: _run_kernel(k, banded,
                                                      planes=bufs)))
     return sum(times) / len(times)
@@ -332,7 +263,7 @@ def check_whole_frame(name, fs, k, banded):
     serial_ms = _elapsed_ms(lambda: _run_serial(k))
     for i in range(REPEATS):
         got = _run_kernel(k, banded)
-        _sync()
+        sync()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(
                 f"{name}: launch {i} of the level-parallel kernel differs "
@@ -381,7 +312,7 @@ def check_intra_fused(fs, reps=REPS):
     if err != 0:
         raise AssertionError(f"intra_fused differs from its plain version "
                              f"by up to {err}")
-    serial_ms, grid = check_whole_frame("i_main", fs, k, False)
+    serial_ms, grid = check_whole_frame("i_main_832x480", fs, k, False)
     return _record("intra_fused", "intra_fused.cu",
                    "openhevc_tpu/ops/intra_fused.py:490", fs, k, err,
                    _kernel_ms(k, False, reps), plain_ms, serial_ms, grid)
@@ -454,7 +385,7 @@ def check_banded_444(fs, reps=REPS):
     if err != 0:
         raise AssertionError(f"intra_fused_banded on 4:4:4 meta differs "
                              f"from its plain version by up to {err}")
-    serial_ms, grid = check_whole_frame("rext_444", fs, k, True)
+    serial_ms, grid = check_whole_frame("rext_444_832x480", fs, k, True)
     n_levels = fs.native_raw["n_levels"]
     ms = _kernel_ms(k, True, reps)
     return {"jobs": k["n"], "n_levels": n_levels,
@@ -477,7 +408,7 @@ def check_upsample(reps=REPS):
     from openhevc_tpu_torch.decoder import Decoder
     from openhevc_tpu_torch.models.pipeline import _slice_plane
     from openhevc_tpu_torch.ops import upsample as up
-    data = first_frames(load_stream("shvc_2layer")[0], 2)
+    data = first_frames(load_stream("shvc_2layer_832x480")[0], 2)
     bl = Decoder(device="cuda")
     pic = (bl.decode(data) + bl.flush())[0]
     el_sps = next(s for s in bl.sps.values()
@@ -503,7 +434,7 @@ def check_upsample(reps=REPS):
     if err != 0:
         raise AssertionError(f"upsample differs from the per-sample "
                              f"evaluation of its tap plan by up to {err}")
-    _sync()
+    sync()
     ms = sum(_elapsed_ms(lambda: up.upsample_il_frame_dev(
         planes, W, H, bit_depth=bd)) for _ in range(reps)) / reps
     sample = 1 if bd <= 8 else 2
@@ -512,66 +443,6 @@ def check_upsample(reps=REPS):
     return {"bl": list(planes[0].shape[::-1]), "el": [W, H],
             "max_abs_err": err, "ms": ms,
             "bound_ms": (px_bl + px_el) * sample / HBM_BYTES_PER_S * 1e3}
-
-
-def smoke_decoder(sync_timers=False, keep=None, two_layers=False,
-                  native_parse=True):
-    """A `Decoder(device="cuda", native_parse=native_parse)`, or with
-    two_layers a `ShvcDecoder(device="cuda")` of two such decoders, that
-    notes every picture's number of intra jobs (`jobs`) and whether it
-    has inter blocks (`inter`), keeps the pictures for which keep(fs)
-    holds with their references (`kept`: (fs, refs) pairs in decode
-    order), and, with sync_timers, builds its engine with the per-stage
-    timers on."""
-    from openhevc_tpu_torch.decoder import Decoder, ShvcDecoder
-    from openhevc_tpu_torch.models.pipeline import TorchEngine
-
-    class SmokeDecoder(Decoder):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.jobs, self.inter, self.kept = [], [], []
-
-        def _engine(self):
-            if self._torch_engine is None:
-                self._torch_engine = TorchEngine(self.device,
-                                                 sync_timers=sync_timers)
-            return self._torch_engine
-
-        def _reconstruct(self, fs, refs):
-            self.jobs.append(n_jobs(fs))
-            self.inter.append(bool(fs.inter_pbs))
-            if keep is not None and keep(fs):
-                self.kept.append((fs, dict(refs)))
-            return super()._reconstruct(fs, refs)
-
-    if not two_layers:
-        return SmokeDecoder(device="cuda", native_parse=native_parse)
-
-    class SmokeShvc(ShvcDecoder):
-        layer_class = SmokeDecoder
-
-    return SmokeShvc(device="cuda")
-
-
-def layers(dec):
-    """The single-layer decoders of a smoke decoder."""
-    return [dec.bl, dec.el] if hasattr(dec, "bl") else [dec]
-
-
-def decode_all(data, fetch, sync_timers=False, two_layers=False,
-               native_parse=True):
-    """Decode the stream; returns (pictures, seconds, decoder).
-    fetch=True pulls every picture to the host inside the timed region."""
-    dec = smoke_decoder(sync_timers, two_layers=two_layers,
-                        native_parse=native_parse)
-    _sync()
-    t0 = time.perf_counter()
-    pics = dec.decode(data) + dec.flush()
-    if fetch:
-        for p in pics:
-            p.planes.get()
-    _sync()
-    return pics, time.perf_counter() - t0, dec
 
 
 def inter_picture(name):
@@ -620,7 +491,7 @@ def check_banded_on_prefill(fs, refs, reps=REPS):
         out = [k["luma"].clone(), k["chroma"].clone()]
         fn(k["meta"], torch.zeros_like(k["bounds"]), 0, *out, k["res_l"],
            k["res_c"], k["bd"], *empty)
-        _sync()
+        sync()
         if intra_fused_banded.launches != before or \
                 _max_err(out, [k["luma"], k["chroma"]]) != 0:
             raise AssertionError("n == 0 launched the banded kernel or "
@@ -706,39 +577,6 @@ def stage_bounds(sps, pairs):
          "combine": px * 4 * 4,
          "deblock": px * 4 * 2, "sao": px * 4 * 2}
     return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in b.items()}
-
-
-def breakdown(data, two_layers=False):
-    """Mean ms per frame of each stage: the host parse run alone (native
-    core, parse-ahead threads; not for two layers, where the enhancement
-    layer's parse needs the base layer's pictures); then one decode with
-    the engine's per-stage timers on (each stage synchronised, so nothing
-    overlaps): host packing (band sort, filter control data, motion
-    deltas), the one upload, residual, MC stage 1 / stage 2 / combine,
-    meta + level schedule, the intra kernel, deblock, SAO, crop + pack,
-    the inter-layer upsample; and the device-to-host fetch of every
-    output. With two layers a frame is an output (enhancement-layer)
-    picture and the stages of both layers add up. Returns (rows,
-    decoder, pictures)."""
-    out = {}
-    if not two_layers:
-        t0 = time.perf_counter()
-        nf = len(parse_only(data))
-        out["parse"] = (time.perf_counter() - t0) * 1e3 / nf
-    pics, _, dec = decode_all(data, fetch=False, sync_timers=True,
-                              two_layers=two_layers)
-    nf = len(pics)
-    for d in layers(dec):
-        for key, ms in d._engine().stage_ms.items():
-            out[key] = out.get(key, 0.0) + ms / nf
-    out["prep (host_pack + upload + residual + meta_schedule)"] = sum(
-        out.get(key, 0.0) for key in ("host_pack", "upload", "residual",
-                                      "meta_schedule"))
-    t0 = time.perf_counter()
-    for p in pics:
-        p.planes.get()
-    out["fetch"] = (time.perf_counter() - t0) * 1e3 / nf
-    return out, dec, pics
 
 
 def main_path(name, counters):
@@ -902,13 +740,13 @@ def check_python_parser(counters):
     levels computed from its objects, one whole-frame launch a frame,
     md5-exact. One frame's parse is timed first and sets how many frames
     fit PY_PARSE_SECONDS."""
-    data, want = load_stream("i_main")
+    data, want = load_stream("i_main_832x480")
     t0 = time.perf_counter()
     parse_only(first_frames(data, 1), native_parse=False)
     parse_ms = (time.perf_counter() - t0) * 1e3
     n = max(2, min(len(want), int(PY_PARSE_SECONDS * 1e3 / parse_ms)))
     pics, dt, dec, launches = route_decode(
-        "i_main", first_frames(data, n), counters, "intra_fused",
+        "i_main_832x480", first_frames(data, n), counters, "intra_fused",
         "python parser", native_parse=False)
     if dec.stats["python_slices"] != n or dec.stats["native_slices"]:
         raise AssertionError(f"python parser: {dec.stats}")
@@ -950,7 +788,7 @@ def check_cli():
     from openhevc_tpu_torch.container.mp4 import (annexb_to_length_prefixed,
                                                   make_hvcc)
     from openhevc_tpu_torch.decoder import split_nals
-    data, want = load_stream("i_main")
+    data, want = load_stream("i_main_832x480")
     sps = parse_only(first_frames(data, 1))[0].sps
     p = AuParser()
     aus = p.feed(data) + p.flush()
@@ -958,7 +796,7 @@ def check_cli():
           if (t := (n[0] >> 1) & 0x3F) in (32, 33, 34)}
     mp4 = mux_mp4([annexb_to_length_prefixed(au) for au in aus],
                   make_hvcc(ps[32], ps[33], ps[34]), sps.width, sps.height)
-    fb = FRAME_BYTES["i_main"]
+    fb = FRAME_BYTES["i_main_832x480"]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     out = {}
@@ -1054,10 +892,10 @@ def wave_decode(name, mesh, counters):
     def decode(blob, m=mesh):
         kw = dict(mesh=m) if m is not None else dict(device="cuda")
         dec = ShvcDecoder(**kw) if two else Decoder(**kw)
-        _sync()
+        sync()
         t0 = time.perf_counter()
         pics = dec.decode(blob) + dec.flush()
-        _sync()
+        sync()
         return pics, time.perf_counter() - t0
 
     with patched(MeshFrameDecoder, "reconstruct_wave", spy):
@@ -1162,9 +1000,10 @@ def run_waves(counters):
     kernel. Returns ({(axis, stream): result}, tile-shard record)."""
     frame, grid = wave_meshes()
     out = {}
-    for name in ("i_main", "ra_main_1080p", "ra_main10_4k", "shvc_2layer"):
+    for name in ("i_main_832x480", "ra_main_1080p", "ra_main10_4k",
+                 "shvc_2layer_832x480"):
         out["frame", name] = wave_decode(name, frame, counters)
-    sizes = out["frame", "i_main"]["pocs"]
+    sizes = out["frame", "i_main_832x480"]["pocs"]
     if any(len(w) != WAVE_FRAMES for w in sizes):
         raise AssertionError(f"waves: i_main in waves of "
                              f"{[len(w) for w in sizes]}")
@@ -1173,20 +1012,62 @@ def run_waves(counters):
     if not inter:
         raise AssertionError("waves: ra_main_1080p has no inter wave of 3 "
                              "or more pictures")
-    for name in ("ra_tiles_1080p", "i_main"):
+    for name in ("ra_tiles_1080p", "i_main_832x480"):
         out["tile", name] = wave_decode(name, grid, counters)
     return out, check_tile_shard()
 
 
+# ---- phase 7: the bench script ---------------------------------------------
+
+def check_bench(launches):
+    """Phase 7: `python3 bench_torch.py --only i_main_832x480` as a
+    subprocess on the card must exit 0 with a JSON last line in which
+    i_main is md5-exact in every pass, its launches equal phase 4's
+    (`launches`) and the device is this process's card. Returns the
+    stream's record."""
+    import torch
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
+                        "--only", "i_main_832x480"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    rec = line["configs"]["i_main_832x480"]
+    card = torch.cuda.get_device_name(0)
+    print(f"phase7 bench_torch.py --only i_main_832x480: exit 0 in "
+          f"{secs} s; {rec['frames']} frames, exact {rec['bit_exact']} / "
+          f"{rec['decode_only_exact']} / {rec['diagnostics_exact']}, "
+          f"launches {rec['launches']} (phase 4: {launches}), device "
+          f"{line['device']['name']!r}; fps {rec['fps']} fetched / "
+          f"{rec['fps_decode_only']} on the device, busy share "
+          f"{rec['busy_share']} profiled / {rec['busy_share_timed']} of the "
+          f"timed pass, bytes a frame {rec['h2d_bytes_per_frame']} "
+          f"H2D / {rec['d2h_bytes_per_frame']} D2H, peak memory "
+          f"{rec['peak_mem_bytes']} B", flush=True)
+    if not (rec["bit_exact"] and rec["decode_only_exact"]):
+        raise AssertionError("bench_torch.py: i_main differs from the md5 "
+                             "sidecar")
+    if rec["launches"] != launches:
+        raise AssertionError(f"bench_torch.py: launches {rec['launches']}, "
+                             f"phase 4 {launches}")
+    if line["device"]["name"] != card:
+        raise AssertionError(f"bench_torch.py ran on "
+                             f"{line['device']['name']!r}, not {card!r}")
+    return rec
+
+
 def run():
-    """Phases 3-7 on the card; returns the kernel records."""
+    """Phases 3-8 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
                 "intra_fused_serial": ifm.intra_fused_serial}
 
     # ---- phase 3: each kernel vs its plain version -----------------------
-    fs = parse_only(first_frames(load_stream("i_main")[0], 1))[0]
+    fs = parse_only(first_frames(load_stream("i_main_832x480")[0], 1))[0]
     recs = {"intra_fused": check_intra_fused(fs)}
     r = recs["intra_fused"]
     print(f"phase3 intra_fused == plain on i_main frame 0 ({r['jobs']} "
@@ -1214,7 +1095,7 @@ def run():
     fs, refs = inter_picture("ra_main10_4k")
     modes["ra_main10_4k"] = check_mc_modes("ra_main10_4k", fs, refs)
     del fs, refs
-    fs = parse_only(first_frames(load_stream("rext_444")[0], 1))[0]
+    fs = parse_only(first_frames(load_stream("rext_444_832x480")[0], 1))[0]
     r444 = check_banded_444(fs)
     print(f"phase3 intra_fused_banded == plain == serial-order entry on the "
           f"whole of rext_444 frame 0 (4:4:4, {r444['jobs']} jobs, "
@@ -1231,7 +1112,8 @@ def run():
     del fs
 
     # ---- phase 4: the main path of each stream ---------------------------
-    runs = {name: main_path(name, counters) for name in STREAMS}
+    runs = {name: main_path(name, counters)
+            for name, _kind, _frames in CONFIGS}
     for kernel, r in recs.items():
         r["launches_by_stream"] = {
             name: launches[kernel] for name, (_, launches, _) in runs.items()
@@ -1266,14 +1148,17 @@ def run():
     r["max_abs_err"] = max(r["max_abs_err"], shard["max_abs_err"])
     r["tile_shard_ra_tiles_1080p"] = shard
 
-    # ---- phase 7: report ---------------------------------------------------
+    # ---- phase 7: the bench script -----------------------------------------
+    check_bench(runs["i_main_832x480"][1])
+
+    # ---- phase 8: report ---------------------------------------------------
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
     for name, by_mode in modes.items():
         for mode, row in by_mode.items():
             for key, v in row.items():
                 print(f"{name} mc_{mode}_mode {key} {v}")
-    for r, frame in zip(recs.values(), ("i_main", "main10_4k")):
+    for r, frame in zip(recs.values(), ("i_main_832x480", "main10_4k")):
         print(f"{r['name']}_kernel_ms_per_frame {r['ms']} ({frame} frame 0; "
               f"{r['us_per_level']} us a level, {r['us_per_job']} us a job, "
               f"grid {r['grid']})")

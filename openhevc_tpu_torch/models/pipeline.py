@@ -788,10 +788,15 @@ class TorchEngine:
     def __init__(self, device="cuda", sync_timers=False):
         """sync_timers: synchronise around every stage and add up its
         wall time in `stage_ms` (diagnosis only: it serialises host and
-        device)."""
+        device). `h2d_bytes` counts the bytes this engine copies from host
+        memory: the one upload a picture, and reference planes that lie
+        on the host (a concealment frame; on a card, a picture kept on the
+        host). A plane already on a card is not counted, whatever its
+        index."""
         self.device = torch.device(device)
         self.sync_timers = sync_timers
         self.stage_ms = {}
+        self.h2d_bytes = 0
         # byte budget of the stage-1 cache: a quarter of the card's memory
         # (1 GiB on the CPU)
         budget = 2 ** 30 if self.device.type != "cuda" else \
@@ -854,9 +859,12 @@ class TorchEngine:
         Either upload happens once per stay in the stage-1 cache."""
         flat = getattr(planes_obj, "_dev", None)
         if flat is not None:
-            return _slice_plane(flat, c, *planes_obj._dims) \
-                .to(self.device)
+            plane = _slice_plane(flat, c, *planes_obj._dims)
+            if plane.device.type == "cpu" and self.device.type != "cpu":
+                self.h2d_bytes += plane.nbytes
+            return plane.to(self.device)
         src = np.ascontiguousarray(planes_obj[c], np.int32)
+        self.h2d_bytes += src.nbytes
         return torch.from_numpy(src).to(self.device)
 
     def _hf_stack(self, pocs, ref_planes, dims, bd, pairs):
@@ -1044,6 +1052,7 @@ class TorchEngine:
                 host += [inter["wt"]["wg"], inter["wt"]["og"]]
         with self._stage("upload"):
             dev = _upload(host, self.device)
+            self.h2d_bytes += dev[0].untyped_storage().nbytes()
         arena4, arena16, escs, meta6 = dev[:4]
         bounds = dev[at["bounds"]] if "bounds" in at else None
 

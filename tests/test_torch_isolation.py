@@ -1,6 +1,7 @@
-"""The port stands alone: no module of openhevc_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package openhevc_tpu;
-and the default device is the card, with no fallback to the CPU."""
+"""The port stands alone: no module of openhevc_tpu_torch, and neither
+chip_smoke.py nor bench_torch.py, imports jax or anything of the JAX
+package openhevc_tpu; and the default device is the card, with no
+fallback to the CPU."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ PKG = os.path.join(ROOT, "openhevc_tpu_torch")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "bench_torch.py")]
     for d, _dirs, files in os.walk(PKG):
         if "build" in os.path.relpath(d, PKG).split(os.sep):
             continue
@@ -56,6 +58,7 @@ def test_no_jax_or_jax_package_imports():
     files = _sources()
     assert len(files) > 17
     names = {os.path.relpath(f, ROOT) for f in files}
+    assert {"chip_smoke.py", "bench_torch.py"} <= names
     for mod in ("ops/mc.py", "ops/filters.py", "ops/intra_fused.py",
                 "models/pipeline.py", "decoder.py", "ops/filters_sched.py",
                 "api.py", "__main__.py", "display.py",
