@@ -59,7 +59,11 @@ out). Phases (each one fails the run with a non-zero exit):
          this layout beside the banded kernel;
      (ii) the Python parser: the first frames of i_main with
          `native_parse=False` (one whole-frame launch a frame; one
-         frame's parse timed first sets how many fit PY_PARSE_SECONDS);
+         frame's parse timed first sets how many fit PY_PARSE_SECONDS),
+         then the first pictures of ra_tiles_1080p in decode order, POC
+         0 and POC 8 (its first inter picture, whose merge and AMVP
+         candidates must stay inside their tile) and as many more as
+         fit the same budget (one banded launch a picture);
      (iii) host-scheduled filters: the first HOST_FILTER_PICTURES of
          ra_tiles_1080p with `prep_filters` giving up on every picture
          (banded launches as on the main path; the host_filters stage
@@ -130,7 +134,7 @@ REPEATS = 20        # launches in a row that must give identical planes
 PLAIN_BANDS = 2     # bands of 4K frame 0 held to the plain version
 RA_4K_PICTURES = 5  # pictures of ra_main10_4k on the no-band-plan route
 HOST_FILTER_PICTURES = 3    # pictures of ra_tiles_1080p, host filters
-PY_PARSE_SECONDS = 40       # budget of the Python-parser phase's decode
+PY_PARSE_SECONDS = 40       # budget of each Python-parser decode (phase 5 ii)
 WAVE_FRAMES = 4             # entries of the frame-axis mesh (phase 6)
 WAVE_GRID = (2, 2)          # frame x tile entries of the 2-D mesh (phase 6)
 POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
@@ -734,25 +738,57 @@ def check_no_band_plan(counters, banded_4k_ms, reps=REPS):
     return out
 
 
-def check_python_parser(counters):
-    """Phase 5 (ii): the first frames of i_main through
-    `Decoder(native_parse=False)`: every slice parsed in Python, the
-    levels computed from its objects, one whole-frame launch a frame,
-    md5-exact. One frame's parse is timed first and sets how many frames
-    fit PY_PARSE_SECONDS."""
-    data, want = load_stream("i_main_832x480")
+def python_parse_ms(data):
+    """ms the Python parser takes on each picture of `data`, in decode
+    order, with no reconstruction: the clock between one picture's
+    hand-over and the next's. Returns [(POC, ms), ...]."""
+    from openhevc_tpu_torch.decoder import Decoder
+
+    class _Timed(Decoder):
+        def _reconstruct(self, fs, refs):
+            self.stamps.append((fs.poc, time.perf_counter()))
+
+    d = _Timed(device="cuda", native_parse=False)
+    d.stamps = []
     t0 = time.perf_counter()
-    parse_only(first_frames(data, 1), native_parse=False)
-    parse_ms = (time.perf_counter() - t0) * 1e3
-    n = max(2, min(len(want), int(PY_PARSE_SECONDS * 1e3 / parse_ms)))
-    pics, dt, dec, launches = route_decode(
-        "i_main_832x480", first_frames(data, n), counters, "intra_fused",
-        "python parser", native_parse=False)
-    if dec.stats["python_slices"] != n or dec.stats["native_slices"]:
-        raise AssertionError(f"python parser: {dec.stats}")
-    return {"frames": n, "parse_ms_per_frame": parse_ms,
-            "decode_ms_per_frame": dt * 1e3 / n,
-            "launches": launches["intra_fused"]}
+    d.decode(data)
+    d.flush()
+    starts = [t0] + [t for _poc, t in d.stamps]
+    return [(poc, (t - t_start) * 1e3)
+            for (poc, t), t_start in zip(d.stamps, starts)]
+
+
+def check_python_parser(counters):
+    """Phase 5 (ii): the first pictures of i_main and of ra_tiles_1080p
+    through `Decoder(native_parse=False)`: every slice parsed in Python,
+    the levels computed from its objects, one launch a picture with
+    intra jobs (whole-frame on i_main, banded on ra_tiles_1080p), and
+    md5-exact. The first pictures' parse is timed first and sets how
+    many fit PY_PARSE_SECONDS; on ra_tiles_1080p those are POC 0 and
+    POC 8, its first inter picture, whose merge and AMVP candidates
+    must not come from another tile."""
+    out = {}
+    for name, kernel, label, timed in (
+            ("i_main_832x480", "intra_fused", "python parser", 1),
+            ("ra_tiles_1080p", "intra_fused_banded",
+             "python parser, tiled inter", 2)):
+        data, want = load_stream(name)
+        parse_ms = python_parse_ms(first_frames(data, timed))
+        mean_ms = sum(ms for _poc, ms in parse_ms) / timed
+        n = max(2, min(len(want), int(PY_PARSE_SECONDS * 1e3 / mean_ms)))
+        pics, dt, dec, launches = route_decode(
+            name, first_frames(data, n), counters, kernel, label,
+            native_parse=False)
+        if dec.stats["python_slices"] != n or dec.stats["native_slices"]:
+            raise AssertionError(f"{label}: {name} {dec.stats}")
+        if len(pics) != n or {poc for poc, _ms in parse_ms} - \
+                {p.poc for p in pics}:
+            raise AssertionError(f"{label}: {name} decoded POCs "
+                                 f"{[p.poc for p in pics]}")
+        out[name] = {"pictures": n, "parse_ms": parse_ms,
+                     "decode_ms_per_picture": dt * 1e3 / n,
+                     "launches": launches[kernel]}
+    return out
 
 
 def check_host_filters(counters):
@@ -1128,10 +1164,12 @@ def run():
     recs["intra_fused"]["launches_by_route"] = {
         "main_path": recs["intra_fused"]["launches"],
         "no_band_plan": sum(nbp["launches"].values()),
-        "python_parser": py["launches"], "host_filters": 0}
+        "python_parser": py["i_main_832x480"]["launches"],
+        "host_filters": 0}
     recs["intra_fused_banded"]["launches_by_route"] = {
         "main_path": recs["intra_fused_banded"]["launches"],
-        "no_band_plan": 0, "python_parser": 0,
+        "no_band_plan": 0,
+        "python_parser": py["ra_tiles_1080p"]["launches"],
         "host_filters": hf["launches"]}
     recs["intra_fused"]["main10_4k_frame0_whole_layout"] = {
         k: nbp[k] for k in ("ms", "bound_ms", "jobs")}
@@ -1187,9 +1225,11 @@ def run():
           f"main10_4k {nbp['main10_4k_decode_fps']}, ra_main10_4k first "
           f"{RA_4K_PICTURES} pictures {nbp['ra_main10_4k_decode_fps']}; "
           f"launches {json.dumps(nbp['launches'])}")
-    print(f"python_parser parse_ms_per_frame {py['parse_ms_per_frame']} "
-          f"(i_main frame 0); decode_ms_per_frame "
-          f"{py['decode_ms_per_frame']} over {py['frames']} frames")
+    for name, row in py.items():
+        print(f"python_parser {name} parse_ms_per_picture "
+              f"{json.dumps(row['parse_ms'])} ([POC, ms] in decode order); "
+              f"decode_ms_per_picture {row['decode_ms_per_picture']} over "
+              f"{row['pictures']} pictures")
     for k, v in hf["stage_ms_per_picture"].items():
         print(f"host_filters stage_ms_per_picture {k} {v} (ra_tiles_1080p, "
               f"first {hf['pictures']} pictures)")

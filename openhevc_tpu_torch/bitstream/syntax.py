@@ -290,6 +290,10 @@ class SliceDataParser:
             self.mc = MotionContext(
                 sps, self.zscan, poc, sh.slice_type, sh.max_num_merge_cand,
                 self.ref_list, pps.log2_parallel_merge_level)
+            if self.tiles:
+                # merge / AMVP candidates in another tile are unavailable
+                # (6.4.1), as in the native core's neighbour_flags
+                self.mc.set_region4(self.region4)
             if col_motion is not None and sh.temporal_mvp:
                 # (col_poc, pred_flag4, mv4, refpoc4[, lt_map]) of the
                 # collocated picture

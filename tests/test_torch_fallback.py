@@ -7,7 +7,11 @@ whole decodes with `prep_filters` forced to None); an inter picture with
 PCM blocks and one with no usable reference (the starting planes of the
 JAX package's packed path); and frames with no band plan, which take the
 whole-frame kernel. Whole decodes are held to `Decoder("np")` and
-`Decoder("jax")`. Tolerance: none (integer samples)."""
+`Decoder("jax")`. Tolerance: none (integer samples).
+Tiled inter streams are held in tests/test_torch_pyparse_tiles.py against
+the native parse and `Decoder("np")`: the JAX package's Python parser
+takes merge / AMVP candidates from another tile, so
+`Decoder("jax", native_parse=False)` is no yardstick there."""
 from types import SimpleNamespace
 
 import numpy as np

@@ -102,7 +102,7 @@ def main() -> int:
             ms.append(cs._elapsed_ms(lambda: fn(planes)))
         return sum(ms) / len(ms), planes
 
-    for name in cs.STREAMS:
+    for name in ("i_main_832x480", "main10_4k"):
         fs = cs.parse_only(cs.first_frames(cs.load_stream(name)[0], 1))[0]
         k = TorchEngine("cuda").prepare(fs)
         nl = fs.native_raw["n_levels"]

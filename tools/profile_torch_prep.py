@@ -4,8 +4,8 @@ one GPU (openhevc_tpu_torch; needs a CUDA device):
 
     python3 tools/profile_torch_prep.py [--frames 3]
 
-For the first frames of each of chip_smoke.py's seven bench streams
-(decode order; an inter picture is prepared with its decoded references
+For the first frames of each of the seven bench streams (`CONFIGS`; in
+decode order; an inter picture is prepared with its decoded references
 on the card, an enhancement-layer picture with its inter-layer
 reference) it prints
 (a) the synchronised host-clock time of prepare() and of its parts run
@@ -62,7 +62,7 @@ def main() -> int:
         dec.flush()
         return [kept for d in cs.layers(dec) for kept in d.kept]
 
-    for name in cs.STREAMS:
+    for name, _kind, _frames in cs.CONFIGS:
         fss = pictures(name)
         for fs, refs in fss:
             eng.prepare(fs, refs)                             # warm-up
