@@ -96,7 +96,37 @@ out). Phases (each one fails the run with a non-zero exit):
      in which i_main is md5-exact in every timed pass, its launches equal
      phase 4's and its device is this card (the decoder helpers of this
      script are bench_torch.py's);
-  8. print decode rates (every timed pass is md5-checked too), stage
+  8. (new in slice 10) the feature matrix: every stream of
+     feature_streams/MANIFEST.json (written by
+     tools/make_feature_streams.py: tier B, small streams of 4:2:2,
+     4:4:4 intra / inter / filtered, 10 and 12 bits, PCM with and without
+     pcm_loop_filter_disabled, lossless, transform skip, implicit RDPCM,
+     rotation, persistent Rice, scaling lists, CCP, weighted prediction,
+     constrained intra, intra smoothing disabled, CTB 16 / 32 / 64 with
+     the CTB-16 chroma halo, long-term references, two slices, tiles,
+     WPP, a concealed missing reference and all-inter pictures; tier A,
+     4:2:2 10-bit and 4:4:4 8-bit low-delay streams at 1920x1080),
+     decoded whole through `Decoder()` on the card with every launch
+     counter at 0 just before: every picture's md5 equal to the
+     sidecar (the JAX package's `Decoder("np")`), every picture on the
+     route the manifest predicts (parse, filters, whole / banded / no
+     band plan, jobs, inter and PCM blocks), the Python parser's slices
+     as predicted and each kernel launched once a picture of its plan
+     with jobs; each tier B stream decoded a second time the same way
+     with every picture forced onto the banded plan, one CTB row a band
+     (`forced_banded`), held to the same sidecar, every picture planned
+     banded and the banded kernel launched once a picture with jobs;
+     then, on the first picture with intra jobs of each
+     stream (and the first inter picture with jobs of the
+     constrained-intra stream), the whole-frame kernel on the
+     whole-frame layout and the banded kernel on a banded plan (forced
+     to one CTB row a band on tier B) == their plain versions (tier B)
+     or the serial-order entry (tier A), FEATURE_REPEATS (A) launches
+     in a row identical; the phase's seconds, streams, pictures and
+     launches are printed and its launches join the kernels' JSON
+     records under the routes `feature_matrix` and
+     `feature_matrix_banded`;
+  9. print decode rates (every timed pass is md5-checked too), stage
      breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
      rate, MC stage 2, combine, kernel, deblock, SAO, crop, the
      inter-layer upsample, fetch; for shvc_2layer a frame is an
@@ -137,6 +167,9 @@ HOST_FILTER_PICTURES = 3    # pictures of ra_tiles_1080p, host filters
 PY_PARSE_SECONDS = 40       # budget of each Python-parser decode (phase 5 ii)
 WAVE_FRAMES = 4             # entries of the frame-axis mesh (phase 6)
 WAVE_GRID = (2, 2)          # frame x tile entries of the 2-D mesh (phase 6)
+FEATURE_DIR = os.path.join(ROOT, "feature_streams")    # phase 8
+FEATURE_REPEATS = 3         # launches in a row a kept picture (tier B)
+FEATURE_REPEATS_A = 5       # the same on the 1080p streams (tier A)
 POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
 FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
 PHASE4_FPS = {}     # stream -> decode fps of its phase-4 decode
@@ -1095,8 +1128,284 @@ def check_bench(launches):
     return rec
 
 
+# ---- phase 8: the feature matrix ----------------------------------------------
+
+def feature_manifest():
+    """The entries of feature_streams/MANIFEST.json (tools/
+    make_feature_streams.py writes it; a missing file raises)."""
+    with open(os.path.join(FEATURE_DIR, "MANIFEST.json")) as f:
+        return json.load(f)["streams"]
+
+
+def feature_stream(entry):
+    """(bytes, md5 a picture in output order) of a manifest entry."""
+    path = os.path.join(FEATURE_DIR, f"{entry['name']}.265")
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path + ".md5") as f:
+        return data, f.read().split()
+
+
+def picture_route(eng, fs, k):
+    """The route one picture took through the engine `eng`, in the
+    manifest's terms: its parse, its in-loop filters (none / device /
+    host), the kernel plan (`TorchEngine.fused_plan`'s kind: whole,
+    banded, or no_band_plan), its intra jobs, inter blocks and PCM
+    blocks."""
+    kind = eng.fused_plan(fs)[0]
+    if (k["bounds"] is None) != (kind != "banded"):
+        raise AssertionError(f"POC {fs.poc}: plan {kind} but bounds "
+                             f"{k['bounds']}")
+    return {"poc": int(fs.poc),
+            "parse": "native" if fs.native_raw is not None else "python",
+            "filters": "host" if k["host_filters"] else
+                       "device" if k["filters"] is not None else "none",
+            "plan": kind, "jobs": int(k["n"]), "inter": bool(fs.inter_pbs),
+            "pcm": len(fs.pcm_blocks)}
+
+
+def feature_decoder(keep, device="cuda"):
+    """`Decoder(device=device)` (the default configuration) whose engine
+    notes every picture's route (`routes`, decode order) and which keeps
+    (fs, refs) of the pictures for which keep(fs) holds (`kept`)."""
+    from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+
+    class RouteEngine(TorchEngine):
+        def prepare(self, fs, ref_planes=None, shard=None):
+            k = super().prepare(fs, ref_planes, shard)
+            self.routes.append(picture_route(self, fs, k))
+            return k
+
+    class FeatureDecoder(Decoder):
+        def _engine(self):
+            if self._torch_engine is None:
+                self._torch_engine = RouteEngine(self.device)
+                self._torch_engine.routes = self.routes
+            return self._torch_engine
+
+        def _reconstruct(self, fs, refs):
+            if keep(fs):
+                self.kept.append((fs, dict(refs)))
+            return super()._reconstruct(fs, refs)
+
+    d = FeatureDecoder(device=device)
+    d.routes, d.kept = [], []
+    return d
+
+
+def _keeper(entry):
+    """keep(fs) for the phase's kernel checks: the first picture with
+    intra jobs, and on a stream with constrained intra prediction also
+    the first inter picture with intra jobs (the encoder writes PCM and
+    CCP into intra streams only, so theirs have no inter picture)."""
+    seen = set()
+    also_inter = "constrained_intra" in entry["features"]
+
+    def keep(fs):
+        if not n_jobs(fs):
+            return False
+        for what, want in (("first", True),
+                           ("inter", also_inter and bool(fs.inter_pbs))):
+            if want and what not in seen:
+                seen.add(what)
+                return True
+        return False
+    return keep
+
+
+def check_feature_routes(entry, routes, stats, launches=None):
+    """Parts 1-2 of phase 8 beside the md5s: every picture took the route
+    its manifest entry predicts (parse, filters, plan, jobs, inter and
+    PCM blocks, in decode order), the Python parser took the predicted
+    slices, and, with `launches` (the three counters of the decode),
+    each kernel launched once a picture of its plan with jobs."""
+    name = entry["name"]
+    if routes != entry["routes"]:
+        bad = [(g, w) for g, w in zip(routes, entry["routes"]) if g != w]
+        raise AssertionError(f"{name}: routes differ from the manifest "
+                             f"({len(routes)} pictures, "
+                             f"{len(entry['routes'])} predicted; first "
+                             f"differences {bad[:2]})")
+    if stats["python_slices"] != entry["python_slices"]:
+        raise AssertionError(f"{name}: {stats['python_slices']} slices "
+                             f"through the Python parser, "
+                             f"{entry['python_slices']} predicted")
+    if launches is None:
+        return None
+    need = {"intra_fused": sum(r["jobs"] > 0 and r["plan"] != "banded"
+                               for r in routes),
+            "intra_fused_banded": sum(r["jobs"] > 0 and r["plan"] == "banded"
+                                      for r in routes),
+            "intra_fused_serial": 0}
+    if launches != need:
+        raise AssertionError(f"{name}: launches {launches}, predicted "
+                             f"{need}")
+    return need
+
+
+@contextlib.contextmanager
+def forced_banded(width, ctb_size, chroma_format_idc):
+    """Every picture of this width, CTB size and chroma format takes the
+    banded plan, one CTB row a band: the whole-frame gate at 0 and the
+    band scratch budget at one row's (`one_row_budget`)."""
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops import intra_fused as ifm
+    hs = int(chroma_format_idc < 3)
+    vs = int(chroma_format_idc == 1)
+    with patched(TorchEngine, "FUSED_VMEM_BUDGET", 0), \
+            patched(ifm, "VMEM_SCRATCH_BUDGET",
+                    ifm.one_row_budget(width, ctb_size, hs, vs)):
+        yield
+
+
+def feature_kernels(entry, kept, repeats, device="cuda"):
+    """Part 3 of phase 8: on each kept picture, the whole-frame kernel on
+    the whole-frame layout and the banded kernel on a banded plan
+    (Tier B: forced, one CTB row a band; Tier A: the picture's own) each
+    == its plain version on the same inputs (Tier B; the serial-order
+    entry on Tier A, where the plain version would take ~0.5 ms a job),
+    and `repeats` launches in a row give identical planes. Returns
+    {"pictures", "launches": {kernel: n}}."""
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops import intra_fused as ifm
+    tier_a = entry["tier"] == "A"
+    launches = {"intra_fused": 0, "intra_fused_banded": 0}
+    for fs, refs in kept:
+        for banded in (False, True):
+            with contextlib.ExitStack() as st:
+                if not banded:
+                    st.enter_context(patched(TorchEngine,
+                                             "FUSED_VMEM_BUDGET", 1 << 62))
+                elif not tier_a:
+                    st.enter_context(forced_banded(
+                        fs.sps.width, fs.sps.ctb_size,
+                        fs.sps.chroma_format_idc))
+                k = TorchEngine(device).prepare(fs, refs)
+            rows = -(-fs.sps.height // fs.sps.ctb_size)
+            if (k["bounds"] is not None) != banded or (
+                    banded and not tier_a and k["bounds"].numel() != rows + 1):
+                raise AssertionError(f"{entry['name']} POC {fs.poc}: plan "
+                                     f"bounds {k['bounds']} (banded "
+                                     f"{banded}, {rows} CTB rows)")
+            if tier_a:
+                want, label = _run_serial(k), "the serial-order entry"
+            else:
+                want = [k["luma"].clone(), k["chroma"].clone()]
+                lead = (k["bounds"],) if banded else ()
+                plain = ifm.intra_fused_banded_ref if banded else \
+                    ifm.intra_fused_ref
+                plain(k["meta"], *lead, k["n"], *want, k["res_l"],
+                      k["res_c"], k["bd"])
+                label = "its plain version"
+            name = "intra_fused_banded" if banded else "intra_fused"
+            for i in range(repeats):
+                got = _run_kernel(k, banded)
+                sync(device)
+                launches[name] += 1
+                err = _max_err(got, want)
+                if err != 0:
+                    raise AssertionError(
+                        f"{entry['name']} POC {fs.poc}: launch {i} of {name} "
+                        f"differs from {label} by up to {err}")
+    return {"pictures": len(kept), "launches": launches}
+
+
+def decode_feature_stream(entry, counters, banded=False, keep=None,
+                          device="cuda"):
+    """One decode of a manifest stream through `Decoder(device=device)`,
+    with every launch counter of `counters` at 0 just before: every
+    picture's md5 equal to the sidecar, and the routes, Python-parser
+    slices and (with counters) launches the manifest predicts. With
+    `banded`, every picture is forced onto the banded plan, one CTB row a
+    band (`forced_banded`), and must take it. Returns (the decoder, the
+    pictures, a dict of the frames, md5s equal, seconds and launches)."""
+    data, want = feature_stream(entry)
+    dec = feature_decoder(keep or (lambda fs: False), device)
+    label = "banded" if banded else "default"
+    with contextlib.ExitStack() as st:
+        if banded:
+            st.enter_context(forced_banded(entry["width"], entry["ctb_size"],
+                                           entry["chroma_format_idc"]))
+            entry = dict(entry, routes=[dict(r, plan="banded")
+                                        for r in entry["routes"]])
+        for f in counters.values():
+            f.launches = 0
+        sync(device)
+        t0 = time.perf_counter()
+        pics = dec.decode(data) + dec.flush()
+        sync(device)
+        secs = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    got = hash_pics(pics)
+    n_ok = sum(g == w for g, w in zip(got, want))
+    print(f"phase8 {entry['name']} (tier {entry['tier']}, "
+          f"{entry['width']}x{entry['height']} {entry['chroma_format_idc']}"
+          f" {entry['bit_depth']} bit, {label} plan): md5 {n_ok}/"
+          f"{len(want)}; launches {launches}; {secs:.3f} s", flush=True)
+    if len(got) != len(want) or n_ok != len(want):
+        raise AssertionError(f"{entry['name']} ({label} plan): decoded "
+                             f"pictures differ from the md5 sidecar "
+                             f"({n_ok}/{len(want)}, {len(got)} decoded)")
+    check_feature_routes(entry, dec.routes, dec.stats, launches or None)
+    return dec, pics, {"frames": len(pics), "md5_ok": n_ok,
+                       "seconds": secs, "launches": launches}
+
+
+def check_feature_stream(entry, counters, repeats):
+    """Phase 8 on one manifest stream: its decode on the default
+    configuration (`decode_feature_stream`); on tier B a second decode
+    with every picture forced onto the banded plan, held to the same
+    sidecar; then the kernels against their plain versions (or the
+    serial-order entry) on the kept pictures. Returns a dict."""
+    dec, _pics, out = decode_feature_stream(entry, counters,
+                                            keep=_keeper(entry))
+    if entry["tier"] == "B":
+        out["banded"] = decode_feature_stream(entry, counters,
+                                              banded=True)[2]
+    out["checked"] = feature_kernels(entry, dec.kept, repeats)
+    return out
+
+
+def run_feature_matrix(counters):
+    """Phase 8: every stream of feature_streams/MANIFEST.json. Returns
+    {"seconds", "streams", "pictures", "launches" (default-configuration
+    decodes, per kernel), "banded_pictures", "banded_launches" (tier B's
+    forced-banded decodes), "check_launches" (part 3, per kernel),
+    "checked_pictures", "by_stream"}."""
+    t0 = time.perf_counter()
+    out = {"by_stream": {}}
+    for entry in feature_manifest():
+        reps = FEATURE_REPEATS_A if entry["tier"] == "A" else FEATURE_REPEATS
+        out["by_stream"][entry["name"]] = check_feature_stream(
+            entry, counters, reps)
+    rows = out["by_stream"].values()
+    banded = [r["banded"] for r in rows if "banded" in r]
+    out.update(
+        seconds=time.perf_counter() - t0, streams=len(rows),
+        pictures=sum(r["frames"] for r in rows),
+        launches={n: sum(r["launches"][n] for r in rows) for n in counters},
+        banded_streams=len(banded),
+        banded_pictures=sum(r["frames"] for r in banded),
+        banded_launches={n: sum(r["launches"][n] for r in banded)
+                         for n in counters},
+        check_launches={n: sum(r["checked"]["launches"].get(n, 0)
+                               for r in rows) for n in counters},
+        checked_pictures=sum(r["checked"]["pictures"] for r in rows))
+    print(f"phase8 feature matrix: {out['streams']} streams, "
+          f"{out['pictures']} pictures, every one md5-exact and on its "
+          f"predicted route; launches {out['launches']}; forced one-row "
+          f"banded plan: {out['banded_streams']} tier B streams, "
+          f"{out['banded_pictures']} pictures md5-exact, launches "
+          f"{out['banded_launches']}; kernels == plain (tier B) / "
+          f"serial-order entry (tier A) on {out['checked_pictures']} "
+          f"pictures, {out['check_launches']} launches; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def run():
-    """Phases 3-8 on the card; returns the kernel records."""
+    """Phases 3-9 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
@@ -1189,7 +1498,14 @@ def run():
     # ---- phase 7: the bench script -----------------------------------------
     check_bench(runs["i_main_832x480"][1])
 
-    # ---- phase 8: report ---------------------------------------------------
+    # ---- phase 8: the feature matrix ---------------------------------------
+    fm = run_feature_matrix(counters)
+    for kernel, r in recs.items():
+        r["launches_by_route"]["feature_matrix"] = fm["launches"][kernel]
+        r["launches_by_route"]["feature_matrix_banded"] = \
+            fm["banded_launches"][kernel]
+
+    # ---- phase 9: report ---------------------------------------------------
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
     for name, by_mode in modes.items():

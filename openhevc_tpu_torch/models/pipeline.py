@@ -826,7 +826,8 @@ class TorchEngine:
         whole-frame gate, else ("banded", (hl, wl, hc, wc), band_h,
         nbands) at `band_plan`'s dims (the JAX package's `_fused_plan`),
         else, where `band_plan` finds no band (4:2:2 UHD at CTB 64, 4:4:4
-        from 2440 wide, 8K 4:2:0), ("whole", (hl, wl, hc, wc)) again.
+        from 2440 wide, 8K 4:2:0), ("no_band_plan", (hl, wl, hc, wc)):
+        the whole-frame kernel on the padded frame.
 
         Both gates are the TPU's: the whole-frame one is a VMEM limit and
         `band_plan` sizes bands for 9 MiB of VMEM scratch. Both CUDA
@@ -844,7 +845,7 @@ class TorchEngine:
             return ("whole", (hl, wl, hc, wc))
         plan = band_plan(H, W, Hc, Wc, sps.ctb_size, sps.vshift1)
         if plan is None:
-            return ("whole", (hl, wl, hc, wc))
+            return ("no_band_plan", (hl, wl, hc, wc))
         band_h, nb, hl, wl, hc, wc = plan
         return ("banded", (hl, wl, hc, wc), band_h, nb)
 

@@ -76,6 +76,23 @@ SCR_PAD = 64                 # rows below the last band for window overrun
 VMEM_SCRATCH_BUDGET = 9 * 2 ** 20
 
 
+def band_scratch_bytes(band_h, W, Wc, vs):
+    """Bytes of the int32 recon + residual scratch of one band of band_h
+    luma rows, luma and both chroma planes."""
+    wl = OX + ((W + 127) & ~127) + RIGHT
+    wc = OX + ((Wc + 127) & ~127) + RIGHT
+    return 4 * 2 * ((8 + band_h + SCR_PAD) * wl +
+                    2 * (8 + (band_h >> vs) + SCR_PAD) * wc)
+
+
+def one_row_budget(W, cs, hs, vs):
+    """A VMEM_SCRATCH_BUDGET under which `band_plan` cuts a picture of
+    width W and CTB size cs into bands of one CTB row (the scratch of a
+    one-row band, exactly): how tests and chip_smoke.py force the banded
+    plan on small pictures."""
+    return band_scratch_bytes(cs, W, W >> hs, vs)
+
+
 def band_plan(H, W, Hc, Wc, cs, vs):
     """Band height (a multiple of the CTB size cs) whose recon+residual
     scratch of luma and chroma fits VMEM_SCRATCH_BUDGET. Returns
@@ -85,9 +102,7 @@ def band_plan(H, W, Hc, Wc, cs, vs):
     wc = OX + ((Wc + 127) & ~127) + RIGHT
 
     def scratch_bytes(bh):
-        srl = 8 + bh + SCR_PAD
-        src = 8 + (bh >> vs) + SCR_PAD
-        return 4 * 2 * (srl * wl + 2 * src * wc)
+        return band_scratch_bytes(bh, W, Wc, vs)
 
     m = 1
     while m * cs < H and \

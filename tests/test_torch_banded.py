@@ -26,20 +26,13 @@ FRAME_DIMS = [(832, 480, 64), (1920, 1080, 64), (3840, 2160, 64),
               (3840, 2160, 32), (64, 64, 16), (128, 64, 64)]
 
 
-def _budget_for(W, cs, vs=1, hs=1):
-    """A VMEM_SCRATCH_BUDGET under which band_plan picks one CTB row
-    per band (the scratch of a cs-row band, exactly)."""
-    wl = 128 + ((W + 127) & ~127) + 256
-    wc = 128 + (((W >> hs) + 127) & ~127) + 256
-    return 4 * 2 * ((8 + cs + 64) * wl + 2 * (8 + (cs >> vs) + 64) * wc)
-
-
 def _force_banded(monkeypatch, W, cs):
     """Every frame takes the banded path, one CTB row per band."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops import intra_fused as port
     monkeypatch.setattr(TorchEngine, "FUSED_VMEM_BUDGET", 0)
-    monkeypatch.setattr(port, "VMEM_SCRATCH_BUDGET", _budget_for(W, cs))
+    monkeypatch.setattr(port, "VMEM_SCRATCH_BUDGET",
+                        port.one_row_budget(W, cs, 1, 1))
 
 
 def _frames10(W, H, n, seed):
@@ -123,8 +116,8 @@ def test_fused_plan_follows_the_jax_gate(W, H, cs):
 
 def test_fused_plan_without_a_band_raises(monkeypatch):
     """Where `band_plan` finds no band (its budget is the TPU's VMEM
-    scratch), the plan is the whole-frame kernel on the padded frame:
-    both CUDA kernels keep the planes in global memory."""
+    scratch), the plan is "no_band_plan": the whole-frame kernel on the
+    padded frame (both CUDA kernels keep the planes in global memory)."""
     from openhevc_tpu.ops.intra_fused import padded_dims
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops import intra_fused as port
@@ -132,7 +125,7 @@ def test_fused_plan_without_a_band_raises(monkeypatch):
     sps = SimpleNamespace(height=2160, width=3840, vshift1=1, hshift1=1,
                           ctb_size=64)
     plan = TorchEngine("cpu").fused_plan(SimpleNamespace(sps=sps, poc=0))
-    assert plan == ("whole", padded_dims(2160, 3840) +
+    assert plan == ("no_band_plan", padded_dims(2160, 3840) +
                     padded_dims(1080, 1920))
 
 

@@ -17,50 +17,15 @@ import pytest
 import torch
 
 from conftest import make_frames
+# the picture makers live in the feature-stream tool, so that its
+# feature_streams/ and these tests encode the same pictures
+from tools.make_feature_streams import fmt_frames as frames_fmt
+from tools.make_feature_streams import ramps12 as frames12
 from test_torch_intra import cuda  # noqa: F401  (a fixture)
 from test_torch_parse import parsed_jax, parsed_port
 
 
 # ---- streams ---------------------------------------------------------------
-
-def frames_fmt(W, H, n, seed, idc=1, bd=8, moving=False):
-    """Seeded random pictures of one chroma format and bit depth; with
-    moving=True, windows sliding over one larger random picture."""
-    rng = np.random.default_rng(seed)
-    cw = W if idc == 3 else W // 2
-    ch = H // 2 if idc == 1 else H
-    dt = np.uint16 if bd > 8 else np.uint8
-    if not moving:
-        return [tuple(rng.integers(0, 1 << bd, shp).astype(dt)
-                      for shp in ((H, W), (ch, cw), (ch, cw)))
-                for _ in range(n)]
-    base = [rng.integers(0, 1 << bd, (2 * h, 2 * w)).astype(dt)
-            for h, w in ((H, W), (ch, cw), (ch, cw))]
-    out = []
-    for _ in range(n):
-        dx, dy = int(rng.integers(0, W // 2)), int(rng.integers(0, H // 2))
-        sx, sy = W // cw, H // ch
-        out.append((base[0][dy:dy + H, dx:dx + W].copy(),
-                    base[1][dy // sy:dy // sy + ch,
-                            dx // sx:dx // sx + cw].copy(),
-                    base[2][dy // sy:dy // sy + ch,
-                            dx // sx:dx // sx + cw].copy()))
-    return out
-
-
-def frames12(W, H, n, seed, chroma_full=False):
-    """12-bit ramps plus noise (as the JAX package's Main 12 tests)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H, 0:W]
-    cs = slice(None) if chroma_full else slice(None, None, 2)
-    out = []
-    for i in range(n):
-        y = ((xx * 32 + yy * 48 + i * 160) % 4096 * 0.7 +
-             rng.integers(0, 960, (H, W))).astype(np.uint16)
-        out.append((y, ((xx[cs, cs] * 16 + 2048) % 4096).astype(np.uint16),
-                    ((yy[cs, cs] * 32) % 4096).astype(np.uint16)))
-    return out
-
 
 # name -> (kind, encoder keywords); kind "intra" / "lowdelay". W, H, n,
 # seed are popped before the encoder sees the rest.
@@ -213,20 +178,12 @@ def test_port_decoder_rext_matches_jax_decoder(name):
                 decode(JaxDecoder("jax"), data))
 
 
-def _budget_for(W, cs, hs, vs):
-    """A VMEM_SCRATCH_BUDGET under which `band_plan` picks one CTB row a
-    band for this chroma format."""
-    wl = 128 + ((W + 127) & ~127) + 256
-    wc = 128 + (((W >> hs) + 127) & ~127) + 256
-    return 4 * 2 * ((8 + cs + 64) * wl + 2 * (8 + (cs >> vs) + 64) * wc)
-
-
 def _force_banded(monkeypatch, W, cs, hs, vs):
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops import intra_fused as port
     monkeypatch.setattr(TorchEngine, "FUSED_VMEM_BUDGET", 0)
     monkeypatch.setattr(port, "VMEM_SCRATCH_BUDGET",
-                        _budget_for(W, cs, hs, vs))
+                        port.one_row_budget(W, cs, hs, vs))
 
 
 @pytest.mark.parametrize("name", ["444_nxn", "444_tu32", "444_b_filters",
