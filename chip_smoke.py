@@ -126,7 +126,39 @@ out). Phases (each one fails the run with a non-zero exit):
      launches are printed and its launches join the kernels' JSON
      records under the routes `feature_matrix` and
      `feature_matrix_banded`;
-  9. print decode rates (every timed pass is md5-checked too), stage
+  9. (new in slice 11) the two-layer (SHVC) feature matrix: every
+     stream of feature_streams/shvc/MANIFEST.json (written by
+     tools/make_feature_streams.py --shvc: tier B, the CPU tests' small
+     two-layer cases: spatial 2x and 1.5x, SNR, a rectangular CTB-32
+     stream, base-layer motion, temporal + inter-layer references in one
+     list, fractional MVs into the inter-layer picture, TMVP with the
+     collocated picture temporal or inter-layer, at each ratio; tier A,
+     a 1920x1080 (1920x1088 at 2x) enhancement layer (EL) over 2x, 1.5x
+     and SNR base layers (BL), every inter-layer tool on, the EL on the
+     banded kernel), each with every launch counter at 0 just before
+     its decode: through `ShvcDecoder()` on the card every EL picture
+     md5-exact against the JAX package's `ShvcDecoder("np")` and
+     through `Decoder()` on layer 0 alone every BL picture md5-exact
+     against its `Decoder("np")`; every picture of both layers on the
+     route the manifest predicts (phase 8's fields, the MC mode, the
+     inter-layer reference, the collocated picture) with each layer's
+     launches as predicted; tier B decoded again both ways with every
+     picture forced onto the banded plan, one CTB row a band at its
+     layer's width, held to the same sidecars; both kernels == their
+     plain versions (tier B, the first picture with jobs of each layer
+     and the EL's first inter picture) or the serial-order entry (tier
+     A, the same EL pictures),
+     SHVC_REPEATS launches in a row identical; on tier A the upsample of
+     the BL's first picture at 2x, 1.5x and ratio 1 == a per-sample
+     evaluation of its tap plans (timed, with its byte bound), and the
+     EL pictures a second on the device with the stages of both layers;
+     on the second EL AU of SHVC_MC_STREAM (a temporal and an
+     inter-layer reference in L0) the MC's pair mode == its tap mode;
+     the CLI with -l 1 and -l 0 on SHVC_CLI, every frame of each .yuv
+     md5-exact. Its launches join the kernels' JSON records under the
+     routes `shvc_matrix`, `shvc_matrix_base_layer` and
+     `shvc_matrix_banded`;
+ 10. print decode rates (every timed pass is md5-checked too), stage
      breakdowns (parse, prep's parts, MC stage 1 with its cache's hit
      rate, MC stage 2, combine, kernel, deblock, SAO, crop, the
      inter-layer upsample, fetch; for shvc_2layer a frame is an
@@ -170,6 +202,10 @@ WAVE_GRID = (2, 2)          # frame x tile entries of the 2-D mesh (phase 6)
 FEATURE_DIR = os.path.join(ROOT, "feature_streams")    # phase 8
 FEATURE_REPEATS = 3         # launches in a row a kept picture (tier B)
 FEATURE_REPEATS_A = 5       # the same on the 1080p streams (tier A)
+SHVC_DIR = os.path.join(FEATURE_DIR, "shvc")            # phase 9
+SHVC_REPEATS = 3            # launches in a row a kept picture (phase 9)
+SHVC_MC_STREAM = "shvc_x1_5_1080p_ld"   # its second EL AU: pair == tap
+SHVC_CLI = ("col_il_mv", "shvc_x1_5_1080p_ld")  # through -l 1 and -l 0
 POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
 FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
 PHASE4_FPS = {}     # stream -> decode fps of its phase-4 decode
@@ -433,53 +469,63 @@ def check_banded_444(fs, reps=REPS):
             "grid": grid}
 
 
-def check_upsample(reps=REPS):
-    """Phase 3 for the inter-layer upsample (torch ops): the first
-    base-layer picture of shvc_2layer, decoded on the card, upsampled to
-    the enhancement layer's size == a straightforward evaluation of the
-    tap plans (every output sample's taps gathered and summed in int64).
-    Returns a dict with its time and byte bound (the base-layer picture
-    read once, the upsampled one written once, at the picture's sample
-    size)."""
-    import torch
-    from openhevc_tpu_torch.decoder import Decoder
+def check_upsample(pic, W, H, bd, reps=REPS):
+    """The inter-layer upsample (torch ops) of a decoded base-layer
+    picture `pic` (4:2:0, on its device) to W x H == a straightforward
+    evaluation of the tap plans (every output sample's taps gathered and
+    summed in int64). Returns a dict with its time on a card (CUDA
+    events, mean of reps; None on the CPU) and byte bound (the
+    base-layer picture read once, the upsampled one written once, at the
+    picture's sample size)."""
     from openhevc_tpu_torch.models.pipeline import _slice_plane
     from openhevc_tpu_torch.ops import upsample as up
-    data = first_frames(load_stream("shvc_2layer_832x480")[0], 2)
-    bl = Decoder(device="cuda")
-    pic = (bl.decode(data) + bl.flush())[0]
-    el_sps = next(s for s in bl.sps.values()
-                  if (s.width, s.height) != (pic.sps.width, pic.sps.height))
     planes = [_slice_plane(pic.planes._dev, c, *pic.planes._dims)
               for c in range(3)]
-    W, H, bd = el_sps.width, el_sps.height, el_sps.bit_depth
     got = up.upsample_il_frame_dev(planes, W, H, bit_depth=bd)
     err = 0
     for c, (src, g) in enumerate(zip(planes, got)):
         bh, bw = src.shape
         eh, ew = (H, W) if c == 0 else (H >> 1, W >> 1)
-        hidx, hcoef, vidx, vcoef = up._plans(bw, bh, ew, eh, c == 0, "cuda")
+        hidx, hcoef, vidx, vcoef = up._plans(bw, bh, ew, eh, c == 0,
+                                             src.device)
         # acc[j, i] = sum_a sum_b vcoef[a, j] hcoef[b, i] src[vidx[a, j],
         # hidx[b, i]]
         taps = src.long()[vidx.T[:, None, :, None], hidx.T[None, :, None, :]]
         acc = (taps * vcoef[:, :, 0].T.long()[:, None, :, None]
                * hcoef.T.long()[None, :, None, :]).sum((2, 3))
         want = ((acc + (1 << 11)) >> 12).clamp(0, (1 << bd) - 1)
+        del taps, acc
         if g.shape != (eh, ew):
             raise AssertionError(f"upsample plane {c}: shape {g.shape}")
         err = max(err, int((g.long() - want).abs().max()))
     if err != 0:
         raise AssertionError(f"upsample differs from the per-sample "
                              f"evaluation of its tap plan by up to {err}")
-    sync()
-    ms = sum(_elapsed_ms(lambda: up.upsample_il_frame_dev(
-        planes, W, H, bit_depth=bd)) for _ in range(reps)) / reps
+    ms = None
+    if planes[0].device.type == "cuda":
+        sync()
+        ms = sum(_elapsed_ms(lambda: up.upsample_il_frame_dev(
+            planes, W, H, bit_depth=bd)) for _ in range(reps)) / reps
     sample = 1 if bd <= 8 else 2
     px_bl = sum(p.numel() for p in planes)
     px_el = sum(g.numel() for g in got)
     return {"bl": list(planes[0].shape[::-1]), "el": [W, H],
             "max_abs_err": err, "ms": ms,
             "bound_ms": (px_bl + px_el) * sample / HBM_BYTES_PER_S * 1e3}
+
+
+def check_shvc_2layer_upsample(reps=REPS):
+    """Phase 3 for the inter-layer upsample: the first base-layer picture
+    of shvc_2layer, decoded on the card, upsampled to the enhancement
+    layer's size (`check_upsample`)."""
+    from openhevc_tpu_torch.decoder import Decoder
+    data = first_frames(load_stream("shvc_2layer_832x480")[0], 2)
+    bl = Decoder(device="cuda")
+    pic = (bl.decode(data) + bl.flush())[0]
+    el_sps = next(s for s in bl.sps.values()
+                  if (s.width, s.height) != (pic.sps.width, pic.sps.height))
+    return check_upsample(pic, el_sps.width, el_sps.height,
+                          el_sps.bit_depth, reps)
 
 
 def inter_picture(name):
@@ -543,7 +589,7 @@ def check_banded_on_prefill(fs, refs, reps=REPS):
             "bound_ms": _bound_ms(fs, k)}
 
 
-def check_mc_modes(name, fs, refs):
+def check_mc_modes(name, fs, refs, device="cuda", phase="phase3"):
     """Phase 3: the inter prefill of one picture in the MC's pair mode
     and in its tap mode must be identical. Both are timed in turns
     (pair, tap, tap, pair; a first untimed pair run warms up): stage 1
@@ -554,7 +600,7 @@ def check_mc_modes(name, fs, refs):
     times = {True: [], False: []}
     want = None
     for i, pairs in enumerate((True, True, False, False, True)):
-        eng = TorchEngine("cuda", sync_timers=True)
+        eng = TorchEngine(device, sync_timers=True)
         eng.MC_PAIRS_MAX_PIXELS = 1 << 62 if pairs else 0
         k = eng.prepare(fs, refs)
         cache = eng._stage1[pairs]
@@ -586,7 +632,7 @@ def check_mc_modes(name, fs, refs):
             "combine_ms_per_picture": sum(r[2] for r in rows) / len(rows),
             "stage1_bytes_per_reference": rows[0][3],
             "references": rows[0][4]}
-    print(f"phase3 {name} POC {fs.poc}: MC pair mode == tap mode (prefill "
+    print(f"{phase} {name} POC {fs.poc}: MC pair mode == tap mode (prefill "
           f"max_abs_err 0); {json.dumps(out)}", flush=True)
     return out
 
@@ -1404,8 +1450,359 @@ def run_feature_matrix(counters):
     return out
 
 
+# ---- phase 9: the two-layer (SHVC) feature matrix ------------------------
+
+def shvc_manifest():
+    """The entries of feature_streams/shvc/MANIFEST.json (tools/
+    make_feature_streams.py --shvc writes it; a missing file raises)."""
+    with open(os.path.join(SHVC_DIR, "MANIFEST.json")) as f:
+        return json.load(f)["streams"]
+
+
+def shvc_stream(entry):
+    """(bytes, EL md5s, BL md5s), a picture each in output order, of a
+    two-layer manifest entry."""
+    path = os.path.join(SHVC_DIR, entry["name"])
+    with open(path + ".265", "rb") as f:
+        data = f.read()
+    with open(path + ".md5") as f:
+        el = f.read().split()
+    with open(path + ".bl.md5") as f:
+        return data, el, f.read().split()
+
+
+def _col_il(dec, sh, ref_list, poc):
+    """Whether the decoder `dec` (of either package: both choose alike)
+    takes the inter-layer reference's motion as TMVP's collocated
+    picture for the slice header `sh` and lists `ref_list` of picture
+    `poc` (the choice `_decode_slice` makes: the collocated entry
+    carries the picture's own POC and the inter-layer motion field
+    exists)."""
+    if not sh.temporal_mvp or getattr(dec, "_il_motion", None) is None:
+        return False
+    cl = 0 if sh.collocated_list else 1
+    lst = ref_list[cl] or ref_list[1 - cl]
+    return bool(lst) and \
+        lst[min(sh.collocated_ref_idx, len(lst) - 1)][0] == poc
+
+
+def shvc_layer_class(counters, keep, banded=False):
+    """The `Decoder` of one layer in phase 9: it notes every picture's
+    route (`routes`, decode order: phase 8's fields, then the MC mode of
+    its inter blocks, whether its references hold the inter-layer
+    picture, whether TMVP's collocated picture is it), the launches of
+    each counter during its own reconstructions (`launches`), and keeps
+    (fs, refs) of the pictures for which keep(layer, fs) holds (`kept`).
+    With `banded`, each of its pictures is forced onto the banded plan,
+    one CTB row a band at its own width (`forced_banded`)."""
+    from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+
+    class RouteEngine(TorchEngine):
+        def prepare(self, fs, ref_planes=None, shard=None):
+            k = super().prepare(fs, ref_planes, shard)
+            route = picture_route(self, fs, k)
+            route.update(
+                mc=("pair" if self.pairs_mode(fs) else "tap")
+                if fs.inter_pbs else "none",
+                il_ref=fs.poc in (ref_planes or {}))
+            self.routes.append(route)
+            return k
+
+    class LayerDecoder(Decoder):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.routes, self.kept, self.col = [], [], {}
+            self.launches = dict.fromkeys(counters, 0)
+
+        def _engine(self):
+            if self._torch_engine is None:
+                self._torch_engine = RouteEngine(self.device)
+                self._torch_engine.routes = self.routes
+            return self._torch_engine
+
+        def _build_ref_lists(self, sh, sps, poc, il=None):
+            lists = super()._build_ref_lists(sh, sps, poc, il=il)
+            self.col[poc] = _col_il(self, sh, lists, poc)
+            return lists
+
+        def _reconstruct(self, fs, refs):
+            if keep(self.layer, fs):
+                self.kept.append((fs, dict(refs)))
+            before = {n: f.launches for n, f in counters.items()}
+            with contextlib.ExitStack() as st:
+                if banded:
+                    st.enter_context(forced_banded(
+                        fs.sps.width, fs.sps.ctb_size,
+                        fs.sps.chroma_format_idc))
+                out = super()._reconstruct(fs, refs)
+            self.routes[-1]["col_il"] = self.col.pop(fs.poc, False)
+            for n, f in counters.items():
+                self.launches[n] += f.launches - before[n]
+            return out
+
+    return LayerDecoder
+
+
+def _shvc_keeper():
+    """keep(layer, fs) for phase 9's kernel and MC checks: each layer's
+    first picture with intra jobs, and the enhancement layer's first
+    inter picture (its second AU, with the temporal and the inter-layer
+    reference where the EL has both)."""
+    seen = set()
+
+    def keep(layer, fs):
+        for what, want in (("first", n_jobs(fs) > 0),
+                           ("inter", layer == 1 and bool(fs.inter_pbs))):
+            if want and (layer, what) not in seen:
+                seen.add((layer, what))
+                return True
+        return False
+    return keep
+
+
+def decode_shvc(entry, counters, two_layers=True, banded=False, keep=None,
+                device="cuda"):
+    """One decode of a two-layer manifest stream with every launch
+    counter of `counters` at 0 just before: through
+    `ShvcDecoder(device=device)` (two_layers; its EL pictures against
+    the `.md5` sidecar) or `Decoder(device=device)` on layer 0 alone (BL
+    pictures against `.bl.md5`). Every picture md5-exact, every picture
+    of each layer decoded on the route the manifest predicts (on the
+    forced banded plan with `banded`), no slice through the Python
+    parser unless predicted, and, with counters, each layer's launches
+    as its routes predict. Returns (decoders by layer, pictures, dict of
+    frames, md5s equal, seconds, launches by layer)."""
+    from openhevc_tpu_torch.decoder import ShvcDecoder
+    data, want_el, want_bl = shvc_stream(entry)
+    layer = shvc_layer_class(counters, keep or (lambda _l, _fs: False),
+                             banded)
+    if two_layers:
+        dec = type("PhaseShvc", (ShvcDecoder,), {"layer_class": layer})(
+            device=device)
+        decs, want = {"bl": dec.bl, "el": dec.el}, want_el
+    else:
+        dec = layer(device=device)
+        decs, want = {"bl": dec}, want_bl
+    for f in counters.values():
+        f.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    pics = dec.decode(data) + dec.flush()
+    sync(device)
+    secs = time.perf_counter() - t0
+    total = {n: f.launches for n, f in counters.items()}
+    got = hash_pics(pics)
+    n_ok = sum(g == w for g, w in zip(got, want))
+    what = "EL" if two_layers else "BL alone"
+    plan = "banded" if banded else "default"
+    if len(got) != len(want) or n_ok != len(want):
+        raise AssertionError(f"{entry['name']} ({what}, {plan} plan): "
+                             f"pictures differ from the md5 sidecar "
+                             f"({n_ok}/{len(want)}, {len(got)} decoded)")
+    for lay, d in decs.items():
+        routes = entry["routes"][lay]
+        if banded:
+            routes = [dict(r, plan="banded") for r in routes]
+        check_feature_routes(
+            dict(entry, name=f"{entry['name']} {lay} ({what}, {plan} plan)",
+                 routes=routes,
+                 python_slices=entry["python_slices"][lay]),
+            d.routes, d.stats, d.launches or None)
+    by_layer = {lay: d.launches for lay, d in decs.items()}
+    if counters and total != {n: sum(v[n] for v in by_layer.values())
+                              for n in counters}:
+        raise AssertionError(f"{entry['name']}: launches {total} outside "
+                             f"the layers' reconstructions {by_layer}")
+    return decs, pics, {"frames": len(pics), "md5_ok": n_ok,
+                        "seconds": secs, "launches": by_layer}
+
+
+def shvc_rate(entry, device="cuda"):
+    """EL pictures a second on the device of one decode through a plain
+    `ShvcDecoder(device=device)` (outputs left on the device; a decode
+    came before it), md5-checked after its clock stops, and the mean ms
+    an EL picture of each stage of both layers from one more decode with
+    the engines' sync timers (bench_torch.py `breakdown`)."""
+    data, want, _bl = shvc_stream(entry)
+    pics, secs, _dec = decode_all(data, fetch=False, two_layers=True,
+                                  device=device)
+    rows, _timed, staged = breakdown(data, two_layers=True, device=device)
+    if hash_pics(pics) != want or hash_pics(staged) != want:
+        raise AssertionError(f"{entry['name']}: a timed decode differs from "
+                             f"the md5 sidecar")
+    return {"el_pictures_per_s": len(pics) / secs,
+            "stages_ms": {k: v for k, v in rows.items() if v is not None}}
+
+
+def check_shvc_stream(entry, counters, repeats=SHVC_REPEATS, device="cuda"):
+    """Phase 9 on one two-layer stream (see the module's docstring).
+    Returns a dict of what was seen and measured."""
+    name, tier_a = entry["name"], entry["tier"] == "A"
+    decs, _pics, out = decode_shvc(entry, counters, keep=_shvc_keeper(),
+                                   device=device)
+    bl_decs, bl_pics, out["bl_alone"] = decode_shvc(
+        entry, counters, two_layers=False, device=device)
+    if not tier_a:
+        out["banded"] = decode_shvc(entry, counters, banded=True,
+                                    device=device)[2]
+        out["bl_banded"] = decode_shvc(entry, counters, two_layers=False,
+                                       banded=True, device=device)[2]
+    kept = {lay: [(fs, refs) for fs, refs in d.kept if n_jobs(fs)]
+            for lay, d in decs.items()}
+    if not kept["el"] or not (tier_a or kept["bl"]):
+        counts = {k: len(v) for k, v in kept.items()}
+        raise AssertionError(f"{name}: no picture with intra jobs to hold "
+                             f"the kernels on ({counts})")
+    out["checked"] = feature_kernels(
+        entry, kept["el"] if tier_a else kept["bl"] + kept["el"], repeats,
+        device)
+    if tier_a:
+        out["upsample"] = check_upsample(
+            bl_pics[0], entry["width"], entry["height"], entry["bit_depth"])
+        out["rate"] = shvc_rate(entry, device)
+    if name == SHVC_MC_STREAM:
+        fs, refs = next((fs, refs) for fs, refs in decs["el"].kept
+                        if fs.inter_pbs)
+        want = {fs.poc - 1, fs.poc}         # the temporal and the IL picture
+        if not want <= set(refs) or not want <= set(fs.ref_poc_l0):
+            raise AssertionError(f"{name} POC {fs.poc}: L0 {fs.ref_poc_l0}, "
+                                 f"references {sorted(refs)}")
+        out["mc_modes"] = check_mc_modes(name, fs, refs, device, "phase9")
+    n = {lay: sum(r["jobs"] > 0 for r in entry["routes"][lay])
+         for lay in ("bl", "el")}
+    print(f"phase9 {name} (tier {entry['tier']}, BL {entry['bl_width']}x"
+          f"{entry['bl_height']} -> EL {entry['width']}x{entry['height']}, "
+          f"{','.join(entry['features'])}): EL md5 {out['md5_ok']}/"
+          f"{out['frames']}, BL md5 {out['bl_alone']['md5_ok']}/"
+          f"{out['bl_alone']['frames']} (layer 0 alone)"
+          + (f", forced banded plan EL md5 {out['banded']['md5_ok']}/"
+             f"{out['banded']['frames']} BL md5 "
+             f"{out['bl_banded']['md5_ok']}/{out['bl_banded']['frames']}"
+             if "banded" in out else "")
+          + f"; routes as predicted (plans BL "
+          f"{sorted({r['plan'] for r in entry['routes']['bl']})} EL "
+          f"{sorted({r['plan'] for r in entry['routes']['el']})}, "
+          f"pictures with jobs BL {n['bl']} EL {n['el']}); launches "
+          f"{json.dumps(out['launches'])}; kernels == "
+          f"{'serial-order entry' if tier_a else 'plain'} on "
+          f"{out['checked']['pictures']} pictures "
+          f"{json.dumps(out['checked']['launches'])}; {out['seconds']:.3f} s"
+          + (f"; upsample {out['upsample']['bl']} -> {out['upsample']['el']}"
+             f" == per-sample evaluation, {out['upsample']['ms']} ms (bound "
+             f"{out['upsample']['bound_ms']} ms); "
+             f"{out['rate']['el_pictures_per_s']} EL pictures a second on "
+             f"the device, stages_ms {json.dumps(out['rate']['stages_ms'])}"
+             if tier_a else ""), flush=True)
+    return out
+
+
+def check_shvc_cli(entries, device="cuda"):
+    """Phase 9's entry points: `python3 -m openhevc_tpu_torch -i <stream>
+    -o <yuv> -n -l 1` (EL pictures, `ShvcDecoder`) and `-l 0` (BL
+    pictures, `Decoder` on layer 0) on each entry, all processes at once;
+    every frame of each .yuv hashes to its sidecar's md5. Returns
+    {(name, layer): {"frames", "process_seconds"}}."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for entry in entries:
+            src = os.path.join(SHVC_DIR, f"{entry['name']}.265")
+            for layer in (1, 0):
+                yuv = os.path.join(tmp, f"{entry['name']}_l{layer}.yuv")
+                procs[entry["name"], layer] = (yuv, time.perf_counter(),
+                                               subprocess.Popen(
+                    [sys.executable, "-m", "openhevc_tpu_torch", "-i", src,
+                     "-o", yuv, "-n", "-l", str(layer), "-d", device],
+                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+        by_name = {e["name"]: e for e in entries}
+        for (name, layer), (yuv, t0, p) in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"CLI -l {layer} on {name} exited "
+                                     f"{p.returncode}: {stderr[-2000:]}")
+            e = by_name[name]
+            _data, want_el, want_bl = shvc_stream(e)
+            want = want_el if layer else want_bl
+            w, h = (e["width"], e["height"]) if layer else \
+                (e["bl_width"], e["bl_height"])
+            fb = w * h * 3 // 2
+            raw = open(yuv, "rb").read()
+            got = [hashlib.md5(raw[i:i + fb]).hexdigest()
+                   for i in range(0, len(raw), fb)]
+            n_ok = sum(g == x for g, x in zip(got, want))
+            print(f"phase9 CLI -l {layer} {name}: md5 {n_ok}/{len(want)} "
+                  f"frames of the .yuv equal the sidecar ({secs} s for the "
+                  f"process; {stdout.strip()})", flush=True)
+            if len(got) != len(want) or n_ok != len(want):
+                raise AssertionError(f"CLI -l {layer} on {name}: the .yuv "
+                                     f"differs from the md5 sidecar")
+            out[name, layer] = {"frames": n_ok, "process_seconds": secs}
+    return out
+
+
+def run_shvc_matrix(counters, device="cuda"):
+    """Phase 9: every stream of feature_streams/shvc/MANIFEST.json
+    (`check_shvc_stream`), then the CLI on SHVC_CLI. Returns {"seconds",
+    "streams", "pictures" and "md5_ok" by layer, "launches" (two-layer
+    decodes), "base_layer_launches" (layer 0 alone), "banded_launches"
+    (tier B, forced banded plan), "check_launches", "upsample" by
+    stream, "rates" by stream, "mc_modes", "cli", "by_stream"}."""
+    t0 = time.perf_counter()
+    entries = shvc_manifest()
+    rows = {e["name"]: check_shvc_stream(e, counters, device=device)
+            for e in entries}
+
+    def total(runs):
+        return {n: sum(r["launches"][lay][n] for r in runs
+                       for lay in r["launches"]) for n in counters}
+    out = {
+        "by_stream": rows, "streams": len(rows),
+        "pictures": {"el": sum(r["frames"] for r in rows.values()),
+                     "bl": sum(r["bl_alone"]["frames"]
+                               for r in rows.values())},
+        "md5_ok": {"el": sum(r["md5_ok"] for r in rows.values()),
+                   "bl": sum(r["bl_alone"]["md5_ok"] for r in rows.values()),
+                   "banded_el": sum(r["banded"]["md5_ok"]
+                                    for r in rows.values() if "banded" in r),
+                   "banded_bl": sum(r["bl_banded"]["md5_ok"]
+                                    for r in rows.values()
+                                    if "bl_banded" in r)},
+        "launches": total(rows.values()),
+        "base_layer_launches": total([r["bl_alone"] for r in rows.values()]),
+        "banded_launches": total([r[k] for r in rows.values()
+                                  for k in ("banded", "bl_banded")
+                                  if k in r]),
+        "check_launches": {n: sum(r["checked"]["launches"].get(n, 0)
+                                  for r in rows.values()) for n in counters},
+        "upsample": {n: r["upsample"] for n, r in rows.items()
+                     if "upsample" in r},
+        "rates": {n: r["rate"] for n, r in rows.items() if "rate" in r},
+        "mc_modes": rows[SHVC_MC_STREAM]["mc_modes"]}
+    out["cli"] = check_shvc_cli([e for e in entries if e["name"] in SHVC_CLI],
+                                device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase9 SHVC matrix: {out['streams']} two-layer streams, EL "
+          f"{out['md5_ok']['el']}/{out['pictures']['el']} and BL (layer 0 "
+          f"alone) {out['md5_ok']['bl']}/{out['pictures']['bl']} pictures "
+          f"md5-exact, every picture of both layers on its predicted route; "
+          f"launches {out['launches']} (both layers), "
+          f"{out['base_layer_launches']} (layer 0 alone); forced one-row "
+          f"banded plan (tier B): EL {out['md5_ok']['banded_el']} and BL "
+          f"{out['md5_ok']['banded_bl']} pictures md5-exact, launches "
+          f"{out['banded_launches']}; kernel checks "
+          f"{out['check_launches']}; CLI -l 1 / -l 0 md5-exact on "
+          f"{sorted({n for n, _l in out['cli']})}; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def run():
-    """Phases 3-9 on the card; returns the kernel records."""
+    """Phases 3-10 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
@@ -1450,7 +1847,7 @@ def run():
           f"max_abs_err {r444['max_abs_err']}", flush=True)
     r["max_abs_err"] = max(r["max_abs_err"], r444["max_abs_err"])
     r["rext_444_frame0"] = r444
-    ups = check_upsample()
+    ups = check_shvc_2layer_upsample()
     print(f"phase3 upsample {ups['bl']} -> {ups['el']} == per-sample "
           f"evaluation of the tap plan: max_abs_err {ups['max_abs_err']}",
           flush=True)
@@ -1505,7 +1902,15 @@ def run():
         r["launches_by_route"]["feature_matrix_banded"] = \
             fm["banded_launches"][kernel]
 
-    # ---- phase 9: report ---------------------------------------------------
+    # ---- phase 9: the two-layer (SHVC) feature matrix ----------------------
+    sm = run_shvc_matrix(counters)
+    for kernel, r in recs.items():
+        r["launches_by_route"].update(
+            shvc_matrix=sm["launches"][kernel],
+            shvc_matrix_base_layer=sm["base_layer_launches"][kernel],
+            shvc_matrix_banded=sm["banded_launches"][kernel])
+
+    # ---- phase 10: report --------------------------------------------------
     for name, (nf, _, dec) in runs.items():
         report(name, nf, dec)
     for name, by_mode in modes.items():
@@ -1564,6 +1969,20 @@ def run():
           f"level; plain {shard['plain_ms']} ms on {shard['plain_jobs']} "
           f"jobs; bound {shard['bound_ms']} ms; the whole frame "
           f"{shard['frame_ms']} ms)")
+    for name, u in sm["upsample"].items():
+        print(f"shvc_matrix upsample_ms_per_picture {u['ms']} ({name}, "
+              f"{u['bl']} -> {u['el']}; bound {u['bound_ms']} ms)")
+    for name, rate in sm["rates"].items():
+        print(f"shvc_matrix {name} el_pictures_per_s_device_resident "
+              f"{rate['el_pictures_per_s']}")
+        for k, v in rate["stages_ms"].items():
+            print(f"shvc_matrix {name} stage_ms_per_el_picture {k} {v}")
+    for mode, row in sm["mc_modes"].items():
+        for key, v in row.items():
+            print(f"shvc_matrix {SHVC_MC_STREAM} mc_{mode}_mode {key} {v}")
+    for (name, layer), row in sm["cli"].items():
+        print(f"shvc_matrix cli -l {layer} {name} {row['frames']} frames "
+              f"md5-exact, {row['process_seconds']} s for the process")
     for r in recs.values():
         print(f"{r['name']}_launches_by_route "
               f"{json.dumps(r['launches_by_route'])}", flush=True)

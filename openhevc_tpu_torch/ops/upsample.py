@@ -46,8 +46,11 @@ def _plans(bl_w, bl_h, el_w, el_h, luma, device):
     """Cached tap plans of one (BL dims -> EL dims) plane mapping on one
     device, tap-major: (hidx int64 [ntaps, el_w], hcoef int32
     [ntaps, el_w], vidx int64 [ntaps, el_h], vcoef int32
-    [ntaps, el_h, 1])."""
+    [ntaps, el_h, 1]). The key holds the canonical device: "cuda" and
+    "cuda:0" are one card and share one entry."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     key = (bl_w, bl_h, el_w, el_h, luma, device)
     hit = _PLAN_CACHE.get(key)
     if hit is not None:

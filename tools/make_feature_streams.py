@@ -31,7 +31,20 @@ the port is expected to take (`routes`): the parse (native / python), the
 in-loop filters (none / device / host: the JAX package's `prep_filters`
 giving up), the intra kernel's plan (whole / banded / no_band_plan: the
 JAX package's gates, `FUSED_VMEM_BUDGET` and `band_plan`), the number of
-intra jobs and whether the picture has inter blocks."""
+intra jobs and whether the picture has inter blocks.
+
+    python tools/make_feature_streams.py --shvc          # two layers
+
+writes the two-layer (SHVC) streams instead, into feature_streams/shvc/
+with a manifest of their own (`shvc_entries`): tier B, the two-layer
+cases of the CPU tests (tests/test_torch_shvc.py TWO_LAYER and
+tests/test_shvc.py's SNR case with every inter-layer tool); tier A,
+a 1080p enhancement layer (EL) over 2x, 1.5x and SNR base layers (BL), as
+in the SHVC common test conditions. Each has two sidecars, the EL
+pictures from the JAX package's `ShvcDecoder("np")` and the BL pictures
+from its `Decoder("np")` on layer 0, and per layer the routes above plus
+the MC mode, whether the inter-layer picture is a reference and whether
+it is TMVP's collocated picture."""
 from __future__ import annotations
 
 import argparse
@@ -666,8 +679,286 @@ def make_stream(entry, out_dir=OUT_DIR):
     return entry
 
 
+# ---- two-layer (SHVC) streams: feature_streams/shvc/ -------------------------
+# Each entry is one `encode_shvc_stream` call (the JAX package's SHVC
+# encoder: an intra or low-delay P base layer (BL), an enhancement layer
+# (EL) predicted from the upsampled BL picture of its access unit (AU)).
+# Two sidecars, both from the JAX package's decoders with the native
+# parse: `<name>.md5` the EL pictures (`ShvcDecoder("np")`, what the
+# display layer shows) and `<name>.bl.md5` the BL pictures
+# (`Decoder("np")`, layer 0).
+
+SHVC_DIR = os.path.join(OUT_DIR, "shvc")
+SHVC_FLAGS = ("bl_inter", "el_temporal", "el_tmvp", "col_il",
+              "nonzero_il_mv")
+
+SHVC_NOT_ENCODABLE = {
+    "el_deblock_sao": "encode_shvc_stream takes no sao / deblock option: "
+                      "both layers keep the encoder's default (filters "
+                      "off)",
+    "bit10": "encode_shvc_stream takes no bit_depth option (8 bits)",
+    "422_444": "encode_shvc_stream takes no chroma_format_idc option "
+               "(4:2:0)",
+    "b_slices": "both layers are intra or P chains (the EL writes "
+                "slice_type P)",
+}
+
+
+def noise_frames(w, h, n, rng):
+    """tests/test_torch_shvc.py `_frames` (tests/test_shvc.py's): 8-bit
+    4:2:0 noise pictures from the generator `rng`."""
+    return [tuple([rng.integers(0, 256, (h, w)).astype(np.uint8),
+                   rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8),
+                   rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8)])
+            for _ in range(n)]
+
+
+def noise_layers(bl, el, n, seed):
+    """(BL pictures, EL pictures) as tests/test_torch_shvc.py
+    `shvc_stream` makes them: one generator, the BL pictures first."""
+    rng = np.random.default_rng(seed)
+    blf = noise_frames(*bl, n, rng)
+    return blf, noise_frames(*el, n, rng)
+
+
+def _area_taps(n_in, n_out):
+    """(idx, wt) int64 [n_out, k] of an area average from n_in samples to
+    n_out: the input samples that output sample i covers ([i, i + 1) *
+    n_in / n_out) and their overlaps, in units of 1 / n_out of a sample
+    (each row of wt sums to n_in)."""
+    k = -(-n_in // n_out) + 1
+    lo = np.arange(n_out, dtype=np.int64) * n_in
+    idx = (lo // n_out)[:, None] + np.arange(k)[None, :]
+    wt = np.clip(np.minimum(lo[:, None] + n_in, (idx + 1) * n_out) -
+                 np.maximum(lo[:, None], idx * n_out), 0, None)
+    return np.minimum(idx, n_in - 1), wt
+
+
+def area_downscale(plane, h, w):
+    """The plane averaged down to h x w over the area each output sample
+    covers (a 2x2 box filter at ratio 2, the plane itself at ratio 1), in
+    integers, rounded to nearest."""
+    iy, wy = _area_taps(plane.shape[0], h)
+    ix, wx = _area_taps(plane.shape[1], w)
+    rows = (plane.astype(np.int64)[iy] * wy[:, :, None]).sum(1)
+    acc = (rows[:, ix] * wx[None]).sum(2)
+    d = plane.shape[0] * plane.shape[1]
+    return ((acc + d // 2) // d).astype(plane.dtype)
+
+
+def scene_layers(bl, el, n, seed):
+    """One scene in both layers, as SHVC carries it: the EL pictures are
+    `smooth_moving` at EL size, the BL pictures the same pictures
+    averaged down to BL size (`area_downscale`)."""
+    elf = smooth_moving(*el, n, seed)
+    blf = [tuple(area_downscale(p, p.shape[0] * bl[1] // el[1],
+                                p.shape[1] * bl[0] // el[0]) for p in f)
+           for f in elf]
+    return blf, elf
+
+
+LAYER_MAKERS = {"noise_layers": noise_layers, "scene_layers": scene_layers}
+
+# tests/test_torch_shvc.py TWO_LAYER (tests/test_shvc.py's cases), and
+# tests/test_shvc.py::test_shvc_il_motion_x15_snr's SNR case:
+# name -> (BL size, EL size, seed, AUs, flags)
+SHVC_TIER_B = {
+    "x2": ((32, 32), (64, 64), 31, 4, {}),
+    "x1_5": ((32, 32), (48, 48), 41, 4, {}),
+    "snr": ((48, 48), (48, 48), 42, 4, {}),
+    "x2_rect_ctb32": ((48, 32), (96, 64), 43, 4, dict(ctb_log2=5)),
+    "bl_motion": ((32, 32), (64, 64), 51, 5, dict(bl_inter=True)),
+    "mixed_l0": ((32, 32), (64, 64), 52, 5, dict(bl_inter=True,
+                                                 el_temporal=True)),
+    "il_fractional_mv": ((32, 32), (64, 64), 53, 5,
+                         dict(bl_inter=True, el_temporal=True,
+                              nonzero_il_mv=True)),
+    "el_tmvp": ((32, 32), (64, 64), 54, 5, dict(bl_inter=True,
+                                                el_temporal=True,
+                                                el_tmvp=True)),
+    "col_il": ((32, 32), (64, 64), 55, 5, dict(bl_inter=True,
+                                               el_temporal=True, el_tmvp=True,
+                                               col_il=True)),
+    "col_il_mv": ((32, 32), (64, 64), 56, 5,
+                  dict(bl_inter=True, el_temporal=True, el_tmvp=True,
+                       col_il=True, nonzero_il_mv=True)),
+    "col_il_mv_x1_5": ((32, 32), (48, 48), 57, 4,
+                       dict(bl_inter=True, el_temporal=True, el_tmvp=True,
+                            col_il=True, nonzero_il_mv=True)),
+    "snr_col_il_mv": ((48, 48), (48, 48), 58, 4,
+                      dict(bl_inter=True, el_temporal=True, el_tmvp=True,
+                           col_il=True, nonzero_il_mv=True)),
+}
+
+# The SHVC common test conditions (JCTVC-Q1009, "Common SHM test
+# conditions"): a 1080p EL over spatial 2x, spatial 1.5x and SNR BLs,
+# low delay P; CTB 64, BL QP 32, EL QP 30, every inter-layer tool on.
+# name -> (BL size, EL size, seed, what was cut)
+SHVC_TIER_A = {
+    "shvc_x2_1080p_ld": (
+        (960, 544), (1920, 1088), 61,
+        ["BL 960x540 -> 960x544 and EL 1920x1080 -> 1920x1088: the "
+         "encoder writes no conformance window, so both sizes are "
+         "multiples of 8 (hevc_enc.py:289)"]),
+    "shvc_x1_5_1080p_ld": ((1280, 720), (1920, 1080), 62, []),
+    "shvc_snr_1080p_ld": ((1920, 1080), (1920, 1080), 63, []),
+}
+SHVC_TIER_A_AUS = 5
+
+
+def shvc_entries():
+    """name -> two-layer manifest entry (without the fields a decode
+    fills in)."""
+    out = {}
+    for name, (bl, el, seed, n, kw) in SHVC_TIER_B.items():
+        out[name] = dict(
+            name=name, tier="B", encoder="encode_shvc_stream",
+            kwargs=dict(bl_size=list(bl), el_size=list(el), qp=30,
+                        seed=seed, **kw),
+            pictures=dict(maker="noise_layers", bl=list(bl), el=list(el),
+                          n=n, seed=seed),
+            source="tests/test_torch_shvc.py TWO_LAYER" if name !=
+            "snr_col_il_mv" else
+            "tests/test_shvc.py::test_shvc_il_motion_x15_snr (SNR)",
+            reduced=["the CPU test's sizes and AU count"])
+    for name, (bl, el, seed, cut) in SHVC_TIER_A.items():
+        out[name] = dict(
+            name=name, tier="A", encoder="encode_shvc_stream",
+            kwargs=dict(bl_size=list(bl), el_size=list(el), qp=32, el_qp=30,
+                        ctb_log2=6, seed=seed,
+                        **{f: True for f in SHVC_FLAGS}),
+            pictures=dict(maker="scene_layers", bl=list(bl), el=list(el),
+                          n=SHVC_TIER_A_AUS, seed=seed),
+            source="JCTVC-Q1009 Common SHM test conditions: 1080p EL, "
+                   "low delay P, every inter-layer tool; BL = the EL "
+                   "pictures averaged down",
+            reduced=cut + [f"{SHVC_TIER_A_AUS} AUs (the CTC sequences "
+                           f"run 2-10 s)"])
+    return out
+
+
+def make_layer_pictures(spec):
+    """(BL pictures, EL pictures) of a two-layer entry's `pictures`."""
+    return LAYER_MAKERS[spec["maker"]](tuple(spec["bl"]), tuple(spec["el"]),
+                                       spec["n"], spec["seed"])
+
+
+def encode_shvc_entry(entry) -> bytes:
+    """The two-layer stream's bytes from its manifest entry alone."""
+    from openhevc_tpu.encoder.shvc_enc import encode_shvc_stream
+    kw = dict(entry["kwargs"])
+    blf, elf = make_layer_pictures(entry["pictures"])
+    return encode_shvc_stream(blf, elf, tuple(kw.pop("bl_size")),
+                              tuple(kw.pop("el_size")), **kw)[0]
+
+
+def shvc_route(fs, refs, col_il):
+    """The two-layer route fields of one picture beside phase 8's: the
+    MC mode of its inter blocks (the JAX package's gate,
+    `JaxEngine.MC_PAIRS_MAX_PIXELS`; none without inter blocks), whether
+    its references hold the inter-layer picture (which carries the
+    picture's own POC) and whether TMVP's collocated picture is it."""
+    from openhevc_tpu.models.pipeline import JaxEngine
+    pairs = fs.sps.height * fs.sps.width <= JaxEngine.MC_PAIRS_MAX_PIXELS
+    return dict(mc=("pair" if pairs else "tap") if fs.inter_pbs else "none",
+                il_ref=fs.poc in refs, col_il=bool(col_il))
+
+
+def reference_decode_layers(data):
+    """The JAX package's decodes of a two-layer stream, native parse:
+    `ShvcDecoder("np")` (EL md5s, both layers' routes in decode order,
+    both layers' Python-parsed slices) and `Decoder("np")` on layer 0
+    alone (BL md5s, and its routes, which must equal the BL's in the
+    two-layer decode). Returns a dict."""
+    from bench_torch import hash_pics
+    from chip_smoke import _col_il
+    from openhevc_tpu.decoder import Decoder, ShvcDecoder
+
+    class Recording(Decoder):
+        def _build_ref_lists(self, sh, sps, poc, il=None):
+            lists = super()._build_ref_lists(sh, sps, poc, il=il)
+            self.col[poc] = _col_il(self, sh, lists, poc)
+            return lists
+
+        def _reconstruct(self, fs, refs):
+            raw = fs.native_raw
+            self.routes.append(dict(
+                poc=int(fs.poc),
+                parse="native" if raw is not None else "python",
+                filters=_filters(fs), plan=_plan(fs),
+                jobs=int(len(raw["ij_meta"]) if raw is not None
+                         else len(fs.intra_jobs)),
+                inter=bool(fs.inter_pbs), pcm=len(fs.pcm_blocks),
+                **shvc_route(fs, refs, self.col.pop(fs.poc, False))))
+            return super()._reconstruct(fs, refs)
+
+    def recording(d):
+        d.__class__ = Recording
+        d.routes, d.col = [], {}
+        return d
+
+    two = ShvcDecoder("np")
+    for d in (two.bl, two.el):
+        recording(d)
+    el_pics = two.decode(data) + two.flush()
+    bl = recording(Decoder("np", native_parse=True))
+    bl_pics = bl.decode(data) + bl.flush()
+    if bl.routes != two.bl.routes:
+        raise AssertionError("the BL alone takes other routes than in the "
+                             "two-layer decode")
+    return dict(el_md5=hash_pics(el_pics), bl_md5=hash_pics(bl_pics),
+                routes=dict(bl=two.bl.routes, el=two.el.routes),
+                python_slices=dict(bl=two.bl.stats["python_slices"],
+                                   el=two.el.stats["python_slices"]),
+                el_pics=el_pics, bl_pics=bl_pics)
+
+
+def _ratio(bl, el):
+    return {2.0: "x2", 1.5: "x1_5", 1.0: "snr"}[el[0] / bl[0]]
+
+
+def make_shvc_stream(entry, out_dir=SHVC_DIR):
+    """Encode one two-layer entry, write its stream and both sidecars,
+    and return the entry completed from its decodes."""
+    t0 = time.perf_counter()
+    data = encode_shvc_entry(entry)
+    t1 = time.perf_counter()
+    ref = reference_decode_layers(data)
+    t2 = time.perf_counter()
+    name = entry["name"]
+    with open(os.path.join(out_dir, f"{name}.265"), "wb") as f:
+        f.write(data)
+    for suffix, md5s in (("md5", ref["el_md5"]), ("bl.md5", ref["bl_md5"])):
+        with open(os.path.join(out_dir, f"{name}.{suffix}"), "w") as f:
+            f.write("".join(h + "\n" for h in md5s))
+    el_sps, bl_sps = ref["el_pics"][0].sps, ref["bl_pics"][0].sps
+    kw = entry["kwargs"]
+    entry = dict(entry)
+    entry.update(
+        width=int(el_sps.width), height=int(el_sps.height),
+        bl_width=int(bl_sps.width), bl_height=int(bl_sps.height),
+        chroma_format_idc=int(el_sps.chroma_format_idc),
+        bit_depth=int(el_sps.bit_depth), ctb_size=int(el_sps.ctb_size),
+        frames=len(ref["el_md5"]), bl_frames=len(ref["bl_md5"]),
+        bytes=len(data),
+        sidecar="openhevc_tpu.decoder.ShvcDecoder('np'), native parse: "
+                "EL pictures",
+        bl_sidecar="openhevc_tpu.decoder.Decoder('np'), native parse, "
+                   "layer 0: BL pictures",
+        python_slices=ref["python_slices"], routes=ref["routes"],
+        features=sorted({_ratio(kw["bl_size"], kw["el_size"]),
+                         f"ctb{1 << kw.get('ctb_log2', 4)}"} |
+                        {f for f in SHVC_FLAGS if kw.get(f)}))
+    print(f"{name}: {entry['frames']} EL / {entry['bl_frames']} BL "
+          f"pictures, {len(data)} B, encode {t1 - t0:.1f} s, sidecars "
+          f"{t2 - t1:.1f} s", flush=True)
+    return entry
+
+
 def _run(args):
-    name, out_dir = args
+    name, out_dir, shvc = args
+    if shvc:
+        return make_shvc_stream(shvc_entries()[name], out_dir)
     return make_stream(entries()[name], out_dir)
 
 
@@ -676,10 +967,13 @@ def main(argv=None) -> int:
     ap.add_argument("--tier", choices=("A", "B"))
     ap.add_argument("--only", nargs="*")
     ap.add_argument("--jobs", type=int, default=4)
-    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--out")
+    ap.add_argument("--shvc", action="store_true",
+                    help="the two-layer streams (feature_streams/shvc/)")
     a = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    table = entries()
+    table = shvc_entries() if a.shvc else entries()
+    out_dir = a.out or (SHVC_DIR if a.shvc else OUT_DIR)
     names = [n for n, e in table.items()
              if (a.tier is None or e["tier"] == a.tier)
              and (not a.only or n in a.only)]
@@ -687,26 +981,37 @@ def main(argv=None) -> int:
     if unknown:
         print(f"unknown streams: {sorted(unknown)}", file=sys.stderr)
         return 2
-    os.makedirs(a.out, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     with ProcessPoolExecutor(max(1, a.jobs),
                              multiprocessing.get_context("spawn")) as ex:
-        made = {e["name"]: e for e in ex.map(_run, [(n, a.out)
-                                                    for n in names])}
-    path = os.path.join(a.out, MANIFEST)
+        made = {e["name"]: e for e in ex.map(
+            _run, [(n, out_dir, a.shvc) for n in names])}
+    path = os.path.join(out_dir, MANIFEST)
     streams = {}
     if os.path.exists(path):
         with open(path) as f:
             streams = {e["name"]: e for e in json.load(f)["streams"]
                        if e["name"] in table}
     streams.update(made)
-    manifest = {
-        "about": "Feature-matrix streams, written by "
-                 "tools/make_feature_streams.py; sidecars: md5 a picture "
-                 "in output order from the JAX package's Decoder('np'); "
-                 "routes: a picture in decode order.",
-        "families": list(FAMILIES),
-        "not_encodable": NOT_ENCODABLE,
-        "streams": [streams[n] for n in table if n in streams]}
+    if a.shvc:
+        manifest = {
+            "about": "Two-layer (SHVC) feature-matrix streams, written by "
+                     "tools/make_feature_streams.py --shvc; sidecars: md5 "
+                     "a picture in output order, <name>.md5 the EL "
+                     "pictures from the JAX package's ShvcDecoder('np'), "
+                     "<name>.bl.md5 the BL pictures from its Decoder('np') "
+                     "on layer 0; routes: a picture in decode order, per "
+                     "layer.",
+            "not_encodable": SHVC_NOT_ENCODABLE}
+    else:
+        manifest = {
+            "about": "Feature-matrix streams, written by "
+                     "tools/make_feature_streams.py; sidecars: md5 a "
+                     "picture in output order from the JAX package's "
+                     "Decoder('np'); routes: a picture in decode order.",
+            "families": list(FAMILIES),
+            "not_encodable": NOT_ENCODABLE}
+    manifest["streams"] = [streams[n] for n in table if n in streams]
     with open(path, "w") as f:
         json.dump(manifest, f, indent=1)
         f.write("\n")
