@@ -18,6 +18,7 @@ from .bitstream.bits import unescape_rbsp
 from .bitstream import ps as PS
 from .bitstream.slice import parse_slice_header, is_idr, is_irap, I_SLICE
 from .bitstream.syntax import SliceDataParser
+from .utils import trace
 
 class DecodeError(Exception):
     """Raised in strict mode where default mode conceals
@@ -72,6 +73,8 @@ class DecodedPicture:
     planes: list          # [Y, Cb, Cr] int arrays (uncropped)
     sps: object
     motion: tuple | None = None   # (pred_flag4, mv4, refpoc4) for TMVP
+    pid: tuple | None = None      # (layer, decode-order index): spans' id
+    fed: int = -1                 # index of the decode() call that fed it
 
     def cropped(self):
         s = self.sps
@@ -185,8 +188,10 @@ class Decoder:
         self._parse_q = deque()
         self._parse_futs = {}
         self._parse_depth, self._parse_threads = config.resolved_threads()
-        from .utils.log import StageTimers
-        self.timers = StageTimers()   # per-frame parse/pack/… tracing
+        # picture ids of the spans (utils/trace.py): pictures whose
+        # slice header was read, and decode() calls, in this decoder
+        self._pics = 0
+        self._calls = 0
         # parse-path accounting: how many slice segments took the native
         # C++ core vs the Python mirror (tests assert no silent fallback)
         self.stats = {"native_slices": 0, "python_slices": 0}
@@ -334,13 +339,15 @@ class Decoder:
             base.entry_point_offsets = sh.entry_point_offsets
             sh = base
         if sh.first_slice:
+            pid = (self.layer, self._pics)
+            self._pics += 1
             poc = self._compute_poc(sps, sh, nal_type, temporal_id)
             if is_idr(nal_type):
                 self.ref_pics = {}
             il = None
             if self.layer > 0 and sh.inter_layer_pred and \
                     self.shvc_bl is not None:
-                il = self._make_il_ref(poc, sps, sh)
+                il = self._make_il_ref(poc, sps, sh, pid)
             ref_list = self._build_ref_lists(sh, sps, poc, il=il)
             # collocated picture motion for TMVP (hevc_refs.c)
             col_motion = None
@@ -371,7 +378,7 @@ class Decoder:
             acc = dict(sh0=sh, poc=poc, sps=sps, pps=pps,
                        ref_list=ref_list, col_motion=col_motion,
                        nal_type=nal_type, shared=None, parser=None,
-                       n_parsed=0, slice_no=-1)
+                       n_parsed=0, slice_no=-1, pid=pid)
             self._acc = acc
         poc = acc["poc"]
         n_ctb = sps.ctbs_w * sps.ctbs_h
@@ -436,27 +443,32 @@ class Decoder:
                     sh.entry_point_offsets)
             cm = acc["col_motion"]
             rl = acc["ref_list"]
+            pid = acc["pid"]
 
             def job(rbsp=rbsp, sps=sps, pps=pps, sh=sh,
                     nal_type=nal_type, poc=poc, rl=rl,
                     ss_starts=ss_starts, cm=cm,
-                    pt=self._parse_threads):
-                cmv = cm() if callable(cm) else cm
-                try:
-                    return parse_slice_native(
-                        rbsp, sps, pps, sh, nal_type, poc, ref_list=rl,
-                        ss_starts=ss_starts, col_motion=cmv,
-                        parse_threads=pt)
-                except ValueError:
-                    # the native core refused the slice (a capacity or
-                    # feature edge): the Python parser takes it, here in
-                    # the worker
-                    self.stats["python_slices"] += 1
-                    self.stats["native_slices"] -= 1
-                    p = SliceDataParser(rbsp, sps, pps, sh, nal_type,
-                                        poc, ref_list=rl, col_motion=cmv,
-                                        start_ts=0, slice_no=0)
-                    return p.decode()
+                    pt=self._parse_threads, parent=trace.current()):
+                with trace.span("parse", pic=pid, parent=parent,
+                                route="native"):
+                    cmv = cm() if callable(cm) else cm
+                    try:
+                        return parse_slice_native(
+                            rbsp, sps, pps, sh, nal_type, poc,
+                            ref_list=rl, ss_starts=ss_starts,
+                            col_motion=cmv, parse_threads=pt)
+                    except ValueError:
+                        # the native core refused the slice (a capacity
+                        # or feature edge): the Python parser takes it,
+                        # here in the worker
+                        trace.annotate(route="python")
+                        self.stats["python_slices"] += 1
+                        self.stats["native_slices"] -= 1
+                        p = SliceDataParser(rbsp, sps, pps, sh, nal_type,
+                                            poc, ref_list=rl,
+                                            col_motion=cmv, start_ts=0,
+                                            slice_no=0)
+                        return p.decode()
 
             fut = self._parse_executor.submit(job)
             self.stats["native_slices"] += 1
@@ -464,7 +476,7 @@ class Decoder:
             # placeholder enters the DPB now: later headers do RPS
             # bookkeeping against it; motion/planes land at drain
             pic = DecodedPicture(poc=poc, planes=None, sps=sps,
-                                 motion=None)
+                                 motion=None, pid=pid, fed=self._calls)
             self.ref_pics[poc] = pic
             self._parse_futs[poc] = fut
             il = getattr(self, "_il_planes", None) or None
@@ -500,7 +512,7 @@ class Decoder:
             if self._next_vcl_continues:
                 return                  # more segments of this picture
             self._flush_pending()
-            with self.timers.stage("parse"):
+            with trace.span("parse", pic=acc["pid"], route="native"):
                 fs = parse_picture_native(
                     segs, sps, pps, acc["nal_type"], poc,
                     ref_list=acc["ref_list"],
@@ -527,7 +539,7 @@ class Decoder:
                 dep_ctx=(acc["parser"].final_ctx
                          if sh.dependent and acc["parser"] else None),
                 slice_no=max(acc["slice_no"], 0))
-            with self.timers.stage("parse"):
+            with trace.span("parse", pic=acc["pid"], route="python"):
                 fs = p.decode()
             self.stats["python_slices"] += 1
             acc["shared"] = p.shared
@@ -536,15 +548,16 @@ class Decoder:
         if acc["n_parsed"] < n_ctb:
             return                      # picture continues in next NAL
         self._acc = None
-        self._finish_picture(fs, poc, sps)
+        self._finish_picture(fs, poc, sps, acc["pid"])
 
-    def _finish_picture(self, fs, poc, sps):
+    def _finish_picture(self, fs, poc, sps, pid):
         """Parse of this picture is complete (synchronous paths):
         register it in the DPB and stash the reconstruction work."""
         il = getattr(self, "_il_planes", None)
         self._il_planes = None
         pic = DecodedPicture(poc=poc, planes=None, sps=sps,
-                             motion=self._motion_of(fs))
+                             motion=self._motion_of(fs), pid=pid,
+                             fed=self._calls)
         self.ref_pics[poc] = pic
         self._finish_parsed(fs, poc, sps, pic, il)
 
@@ -557,7 +570,7 @@ class Decoder:
         self._parse_futs.pop(poc, None)
         # dispatch the previous picture's recon while the worker runs
         self._flush_pending()
-        with self.timers.stage("parse"):
+        with trace.span("parse_wait", pic=pic.pid):
             fs = fut.result()
         pic.motion = self._motion_of(fs)
         self._finish_parsed(fs, poc, sps, pic, il, pins)
@@ -624,9 +637,10 @@ class Decoder:
             return
         self._pending = None
         fs, pic, refs = p
-        with self.timers.stage("kernel"):
+        with trace.span("reconstruct", pic=pic.pid):
             pic.planes = self._reconstruct(fs, refs)
-        self.timers.frame_done()
+        if hasattr(pic.planes, "pid"):
+            pic.planes.pid = pic.pid
         self._bump(pic, pic.sps)
 
     def _wave_max(self):
@@ -654,11 +668,13 @@ class Decoder:
         refs_list = [{p: o.planes for p, o in rp.items()
                       if o.planes is not None}
                      for _, (_fs, _pic, rp) in entries]
-        with self.timers.stage("kernel"):
+        with trace.span("reconstruct", pic=entries[0][1][1].pid,
+                        pictures=len(entries)):
             outs, _ = self._mesh_dec.reconstruct_wave(fs_list, refs_list)
         for (_, (fs, pic, _rp)), planes in zip(entries, outs):
             pic.planes = planes
-            self.timers.frame_done()
+            if hasattr(planes, "pid"):
+                planes.pid = pic.pid
             self._bump(pic, pic.sps)
 
     def _missing_ref(self, poc, sps):
@@ -694,7 +710,7 @@ class Decoder:
                 np.zeros((h4, w4, 2, 2), np.int32),
                 np.zeros((h4, w4, 2), np.int32), {})
 
-    def _make_il_ref(self, poc, el_sps, sh):
+    def _make_il_ref(self, poc, el_sps, sh, pid):
         """Upsampled BL picture of this AU as the inter-layer reference
         (ff_hevc_set_new_iter_layer_ref behavior; marked long-term with
         the EL's own POC, hevc_refs.c:748). The BL picture is read where
@@ -702,7 +718,8 @@ class Decoder:
         there as a `TorchPlanes` for the EL's MC: nothing crosses to the
         host. Also derives the IL reference's upsampled motion field and
         the BL reference lists' long-term map for TMVP with collocated =
-        IL (mfm; ff_upscale_mv_block, hevc_filter.c:1311)."""
+        IL (mfm; ff_upscale_mv_block, hevc_filter.c:1311). pid: the EL
+        picture's id, which the spans of both steps carry."""
         bl = self.shvc_bl
         bl._drain_parse_all()
         bl_pic = bl.ref_pics.get(poc)
@@ -718,6 +735,7 @@ class Decoder:
         bd, W, H = el_sps.bit_depth, el_sps.width, el_sps.height
         hs, vs = el_sps.hshift1, el_sps.vshift1
         with eng._stage("upsample"):
+            trace.annotate(pic=pid)
             up = upsample_il_frame_dev(
                 [eng._ref_plane_dev(bl_pic.planes, c) for c in range(3)],
                 W, H, bit_depth=bd, hs=hs, vs=vs)
@@ -729,9 +747,10 @@ class Decoder:
             h4 = (el_sps.ctbs_h << el_sps.log2_ctb) >> 2
             w4 = (el_sps.ctbs_w << el_sps.log2_ctb) >> 2
             bl_sps = bl_pic.sps
-            pf, mv, pocg = upscale_mv_field(
-                bl_pic.motion, bl_sps.width, bl_sps.height, W, H, h4, w4,
-                nb_list=2 if sh.slice_type == 0 else 1)
+            with trace.span("il_motion", pic=pid):
+                pf, mv, pocg = upscale_mv_field(
+                    bl_pic.motion, bl_sps.width, bl_sps.height, W, H, h4,
+                    w4, nb_list=2 if sh.slice_type == 0 else 1)
             self._il_motion = (pf, mv, pocg, bl_pic.motion[3])
         return (poc, True)
 
@@ -858,22 +877,27 @@ class Decoder:
     def decode(self, data: bytes):
         """Feed Annex-B bytes (any number of AUs); returns newly available
         pictures in output order."""
-        nals = self._split_nalff(data) if self.is_nalff \
-            else split_nals(data)
-        nals = [n for n in nals if len(n) >= 2]
-        nxt = self._vcl_lookahead(nals)
-        for i, nal in enumerate(nals):
-            self._next_vcl_continues = nxt[i]
-            self._handle_nal(nal)
-        out, self.output = self.output, []
+        self._calls += 1
+        with trace.span("decode"):
+            nals = self._split_nalff(data) if self.is_nalff \
+                else split_nals(data)
+            nals = [n for n in nals if len(n) >= 2]
+            nxt = self._vcl_lookahead(nals)
+            for i, nal in enumerate(nals):
+                self._next_vcl_continues = nxt[i]
+                self._handle_nal(nal)
+            out, self.output = self.output, []
+            trace.outputs(out, self._calls, False)
         return out
 
     def flush(self):
-        self._drain_parse_all()
-        self._flush_pending()
-        self._flush_wave()
-        out = self.output + self.dpb
-        self.output, self.dpb = [], []
+        with trace.span("flush"):
+            self._drain_parse_all()
+            self._flush_pending()
+            self._flush_wave()
+            out = self.output + self.dpb
+            self.output, self.dpb = [], []
+            trace.outputs(out, self._calls, True)
         return out
 
 
@@ -911,18 +935,23 @@ class ShvcDecoder:
         the wrapper's AU-locked layer stepping (openHevcWrapper.c:95;
         BL reference retention is RPS-driven, so the EL cannot lag a
         whole buffer behind)."""
-        nals = [n for n in split_nals(data) if len(n) >= 2]
-        nxt_bl = self.bl._vcl_lookahead(nals)
-        nxt_el = self.el._vcl_lookahead(nals)
-        for i, nal in enumerate(nals):
-            self.bl._next_vcl_continues = nxt_bl[i]
-            self.bl._handle_nal(nal)
-            self.el._next_vcl_continues = nxt_el[i]
-            self.el._handle_nal(nal)
-        self.bl.output = []
-        out, self.el.output = self.el.output, []
+        self.bl._calls += 1
+        self.el._calls += 1
+        with trace.span("decode"):
+            nals = [n for n in split_nals(data) if len(n) >= 2]
+            nxt_bl = self.bl._vcl_lookahead(nals)
+            nxt_el = self.el._vcl_lookahead(nals)
+            for i, nal in enumerate(nals):
+                self.bl._next_vcl_continues = nxt_bl[i]
+                self.bl._handle_nal(nal)
+                self.el._next_vcl_continues = nxt_el[i]
+                self.el._handle_nal(nal)
+            self.bl.output = []
+            out, self.el.output = self.el.output, []
+            trace.outputs(out, self.el._calls, False)
         return out
 
     def flush(self):
-        self.bl.flush()
-        return self.el.flush()
+        with trace.span("flush"):
+            self.bl.flush()
+            return self.el.flush()

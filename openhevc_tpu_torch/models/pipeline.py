@@ -90,6 +90,7 @@ from ..ops.mc import (combine_plane, combine_plane_w, mc_hprefilter,
                       stage1_shape)
 from ..ops.tables import SCAN, SIZES, TABLES
 from ..symbols import FrameSymbols
+from ..utils import trace
 
 
 # ---- the Python packer (pictures the native packer leaves out) ------------
@@ -647,7 +648,10 @@ class TorchPlanes:
     pictures predict from: `TorchEngine._ref_plane_dev`); `get()`
     fetches it to the host once and splits it into [Y, Cb, Cr] arrays of
     that dtype. Quacks like the [Y, Cb, Cr] list the decoder expects.
-    device_filtered: the in-loop filters ran on the device."""
+    device_filtered: the in-loop filters ran on the device. pid: the
+    decoder's picture id, which the `fetch` span carries."""
+
+    pid = None
 
     def __init__(self, flat: torch.Tensor, H, W, Hc, Wc,
                  device_filtered=False):
@@ -659,7 +663,8 @@ class TorchPlanes:
     def get(self):
         if self._mat is None:
             H, W, Hc, Wc = self._dims
-            host = self._dev.cpu().numpy()
+            with trace.span("fetch", pic=self.pid):
+                host = self._dev.cpu().numpy()
             self._mat = [host[:H * W].reshape(H, W),
                          host[H * W:H * W + Hc * Wc].reshape(Hc, Wc),
                          host[H * W + Hc * Wc:].reshape(Hc, Wc)]
@@ -788,11 +793,12 @@ class TorchEngine:
     def __init__(self, device="cuda", sync_timers=False):
         """sync_timers: synchronise around every stage and add up its
         wall time in `stage_ms` (diagnosis only: it serialises host and
-        device). `h2d_bytes` counts the bytes this engine copies from host
-        memory: the one upload a picture, and reference planes that lie
-        on the host (a concealment frame; on a card, a picture kept on the
-        host). A plane already on a card is not counted, whatever its
-        index."""
+        device). Every stage is also a span of utils/trace.py, recorded
+        while a profiler records. `h2d_bytes` counts the bytes this
+        engine copies from host memory: the one upload a picture, and
+        reference planes that lie on the host (a concealment frame; on a
+        card, a picture kept on the host). A plane already on a card is
+        not counted, whatever its index."""
         self.device = torch.device(device)
         self.sync_timers = sync_timers
         self.stage_ms = {}
@@ -806,20 +812,21 @@ class TorchEngine:
 
     @contextlib.contextmanager
     def _stage(self, name):
-        if not self.sync_timers:
-            yield
-            return
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
+        with trace.span(name):
+            if not self.sync_timers:
+                yield
+                return
+            cuda = self.device.type == "cuda"
             if cuda:
                 torch.cuda.synchronize(self.device)
-            self.stage_ms[name] = self.stage_ms.get(name, 0.0) + \
-                (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                self.stage_ms[name] = self.stage_ms.get(name, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
 
     def fused_plan(self, fs: FrameSymbols):
         """("whole", (hl, wl, hc, wc)) when the padded planes fit the
@@ -872,12 +879,17 @@ class TorchEngine:
         """Stage-1 planes of the listed reference pictures: (bufs, slots)
         with bufs[c] [S, P, Hp, wn] (tap mode) or [S, Py, Px, hn, wn]
         (pair mode) for plane c and slots[i] the slot of pocs[i] in all
-        three (`Stage1Cache`)."""
+        three (`Stage1Cache`). The span carries the cache's hits and
+        misses in it."""
         live = {id(o) for o in ref_planes.values()}
+        cache = self._stage1[pairs]
+        hits, misses = cache.hits, cache.misses
         with self._stage("mc_stage1"):
-            return self._stage1[pairs].slots(
-                [ref_planes[p] for p in pocs], dims, bd,
-                self._ref_plane_dev, live, self.device)
+            out = cache.slots([ref_planes[p] for p in pocs], dims, bd,
+                              self._ref_plane_dev, live, self.device)
+            trace.annotate(hits=cache.hits - hits,
+                           misses=cache.misses - misses)
+        return out
 
     def pairs_mode(self, fs: FrameSymbols) -> bool:
         """Whether this picture's MC takes the all-phase-pair mode."""
