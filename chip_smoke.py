@@ -39,8 +39,16 @@ out). Phases (each one fails the run with a non-zero exit):
      banded kernel == its plain version == the serial-order entry on the
      whole frame. On the first base-layer picture of shvc_2layer: the
      inter-layer upsample (torch ops, no kernel) == a per-sample
-     evaluation of the tap plan, timed with its byte bound. Print each
-     frame's level-width histogram; time the kernels;
+     evaluation of the tap plan, timed with its byte bound. On the first
+     inter picture of the benchmark's 1080p stream
+     (benchmark/streams/hevc_ra_1080p_qp32.265): the deblocking
+     edge-parameter kernel (csrc/edge_params.cu) == its plain version ==
+     `prep_filters`' numpy arrays, timed beside both and its byte bound.
+     From here on every `TorchEngine.prepare` of a picture deblocked on
+     the card, and every such member a mesh's tile axis filters, must
+     launch it once, and every other prepare never (`edge_watch`); its
+     launches are counted with the intra kernels' in phases 4-9;
+     Print each frame's level-width histogram; time the kernels;
   4. decode every frame of each stream through `Decoder(device="cuda")`
      (`ShvcDecoder(device="cuda")` for shvc_2layer) with every launch
      counter set to 0 just before, require each stream's kernel to have
@@ -206,7 +214,10 @@ SHVC_DIR = os.path.join(FEATURE_DIR, "shvc")            # phase 9
 SHVC_REPEATS = 3            # launches in a row a kept picture (phase 9)
 SHVC_MC_STREAM = "shvc_x1_5_1080p_ld"   # its second EL AU: pair == tap
 SHVC_CLI = ("col_il_mv", "shvc_x1_5_1080p_ld")  # through -l 1 and -l 0
+EDGE_STREAM = os.path.join(ROOT, "benchmark", "streams",
+                           "hevc_ra_1080p_qp32.265")    # phase 3
 POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
+EDGE_NEED = [0]     # pictures deblocked on the card since `zero` (phases 4-9)
 FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
 PHASE4_FPS = {}     # stream -> decode fps of its phase-4 decode
 
@@ -220,6 +231,66 @@ def patched(obj, name, value):
         yield
     finally:
         setattr(obj, name, old)
+
+
+def zero(counters):
+    """Every launch counter of `counters` and EDGE_NEED to 0, before a
+    decode whose launches a phase counts."""
+    for f in counters.values():
+        f.launches = 0
+    EDGE_NEED[0] = 0
+
+
+def read(counters):
+    """At one moment: the launches of each counter of `counters` since
+    `zero`, and, where it holds the edge-parameter kernel, that kernel's
+    due launches, one a picture deblocked on the card (EDGE_NEED), as
+    {"edge_params": n} (else {})."""
+    launches = {n: f.launches for n, f in counters.items()}
+    due = {"edge_params": EDGE_NEED[0]} if "edge_params" in counters else {}
+    return launches, due
+
+
+@contextlib.contextmanager
+def edge_watch():
+    """Inside the block, every `TorchEngine.prepare` of a whole picture
+    (not a tile shard) that is deblocked and filtered on the device (not
+    the host-filter route), and every such member that a mesh's tile
+    axis combines and filters, makes ONE `edge_params` launch, and every
+    other prepare none; each such picture adds 1 to EDGE_NEED. A picture
+    that breaks the rule raises."""
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops.filters import edge_params
+    from openhevc_tpu_torch.parallel.mesh import MeshFrameDecoder
+    prepare = TorchEngine.prepare
+    combine = MeshFrameDecoder._combine_and_filter
+
+    def check(fs, before, need, where):
+        got = edge_params.launches - before
+        if got != need:
+            raise AssertionError(f"{where} of POC {fs.poc} (deblocking "
+                                 f"{'off' if fs.deblock_disabled else 'on'})"
+                                 f": {got} edge_params launches, not {need}")
+        EDGE_NEED[0] += need
+
+    def watched_prepare(self, fs, ref_planes=None, shard=None):
+        before = edge_params.launches
+        k = prepare(self, fs, ref_planes, shard)
+        check(fs, before, int(shard is None and not fs.deblock_disabled and
+                              not k["host_filters"]), "prepare")
+        return k
+
+    def watched_combine(self, fs, gmap, ks, devices):
+        before = edge_params.launches
+        out = combine(self, fs, gmap, ks, devices)
+        check(fs, before, int(not fs.deblock_disabled and
+                              out.device_filtered), "the tile axis' filters")
+        return out
+
+    with patched(TorchEngine, "prepare", watched_prepare), \
+            patched(MeshFrameDecoder, "_combine_and_filter",
+                    watched_combine):
+        yield
 
 
 def _elapsed_ms(fn):
@@ -637,6 +708,67 @@ def check_mc_modes(name, fs, refs, device="cuda", phase="phase3"):
     return out
 
 
+def check_edge_params(reps=REPS):
+    """Phase 3 for the edge-parameter kernel (csrc/edge_params.cu): on
+    the first inter picture of the benchmark's 1080p stream (EDGE_STREAM),
+    the kernel == its plain version on the card == `prep_filters`' numpy
+    arrays; the kernel timed with CUDA events around one launch (mean of
+    reps; the wrapper's host time between the events included) and by
+    the profiler's device time, the plain version with CUDA events,
+    beside the byte bound (the grids read once, the eight arrays
+    written once)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from openhevc_tpu_torch.ops.filters import (EDGE_KEYS, edge_inputs,
+                                                edge_params, edge_params_ref,
+                                                prep_filters)
+    with open(EDGE_STREAM, "rb") as f:
+        fs = parse_only(first_frames(f.read(), 2))[1]
+    if not fs.inter_pbs or fs.deblock_disabled:
+        raise AssertionError("the second picture of the 1080p stream is "
+                             "not a deblocked inter picture")
+    grids, kw = edge_inputs(fs)
+    args = [torch.from_numpy(np.array(a)).cuda() for a in grids]
+    got = edge_params(*args, **kw)
+    plain = edge_params_ref(*args, **kw)
+    pff = prep_filters(fs)
+    err = max(max(int((a.int() - b.int()).abs().max()),
+                  int(np.abs(a.cpu().numpy().astype(np.int32) - pff[k])
+                      .max()))
+              for k, a, b in zip(EDGE_KEYS, got, plain))
+    if err != 0:
+        raise AssertionError(f"edge_params differs from the plain version "
+                             f"or prep_filters by up to {err}")
+    sync()
+    ms = sum(_elapsed_ms(lambda: edge_params(*args, **kw))
+             for _ in range(reps)) / reps
+    plain_ms = sum(_elapsed_ms(lambda: edge_params_ref(*args, **kw))
+                   for _ in range(reps)) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            edge_params(*args, **kw)
+        sync()
+    dev_us = [getattr(e, "device_time_total", None) or e.cuda_time_total
+              for e in prof.key_averages() if "edge_params_kernel" in e.key]
+    H, W = kw["H"], kw["W"]
+    per_block = sum(a.nbytes // grids[0].size
+                    for a in grids[:5] + grids[6:])
+    read = (H >> 2) * (W >> 2) * per_block + grids[5].nbytes
+    written = sum(a.numel() * a.element_size() for a in got)
+    return {"name": "edge_params", "route": "cuda",
+            "source": "openhevc_tpu_torch/csrc/edge_params.cu",
+            "replaces": "none: numpy on the host (openhevc_tpu/ops/"
+                        "filters_jax.py prep_filters)",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": (read + written) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "device_us": dev_us[0] / reps if dev_us else None,
+            "bytes": read + written, "poc": fs.poc,
+            "segments": sum(a.numel() for a in got) // 2}
+
+
 def stage_bounds(sps, pairs):
     """Byte bounds (ms at HBM_BYTES_PER_S) of the torch-op stages of one
     picture: each stage's inputs read once and outputs written once.
@@ -665,17 +797,17 @@ def stage_bounds(sps, pairs):
 def main_path(name, counters):
     """Phase 4 on one stream: decode it with every launch counter set to
     0 just before; require its kernel exactly once per picture with an
-    intra job, the other kernel and the serial-order entry never, and
+    intra job, the other kernel and the serial-order entry never, the
+    edge-parameter kernel once per picture deblocked on the card, and
     every frame's md5 equal to the sidecar. Returns (number of frames,
     launch counts, decoder)."""
     data, want = load_stream(name)
     two = name in TWO_LAYERS
     decode_all(first_frames(data, 4 if two else 2), fetch=True,
                two_layers=two)                            # warm-up
-    for f in counters.values():
-        f.launches = 0
+    zero(counters)
     pics, dt, dec = decode_all(data, fetch=False, two_layers=two)
-    launches = {n: f.launches for n, f in counters.items()}
+    launches, need = read(counters)
     got = hash_pics(pics)
     PHASE4_FPS[name] = len(pics) / dt
     POC_ORDER[name] = [p.poc for p in pics]
@@ -684,16 +816,22 @@ def main_path(name, counters):
     with_jobs = sum(n > 0 for d in layers(dec) for n in d.jobs)
     print(f"phase4 {name} md5 {n_ok}/{len(want)} frames equal the sidecar "
           f"({len(pics)} decoded, {with_jobs} pictures with intra jobs"
-          f"{' in both layers' if two else ''}; launches {launches})",
-          flush=True)
+          f"{' in both layers' if two else ''}, "
+          f"{need.get('edge_params')} deblocked on the card; launches "
+          f"{launches})", flush=True)
     if len(pics) != len(want) or n_ok != len(want):
         raise AssertionError(f"{name}: decoded frames differ from the "
                              f"reference md5 sidecar")
     for n, c in launches.items():
-        if n == KERNEL_OF[name] and (c != with_jobs or c == 0):
+        if n == "edge_params":
+            if c != need[n]:
+                raise AssertionError(f"{name}: edge_params launched {c} "
+                                     f"times for {need[n]} pictures "
+                                     f"deblocked on the card")
+        elif n == KERNEL_OF[name] and (c != with_jobs or c == 0):
             raise AssertionError(f"{name}: kernel {n} launched {c} times "
                                  f"for {with_jobs} pictures with jobs")
-        if n != KERNEL_OF[name] and c != 0:
+        elif n != KERNEL_OF[name] and c != 0:
             raise AssertionError(f"{name}: {n} launched {c} times; this "
                                  f"stream's frames are {KERNEL_OF[name]}'s")
     return len(pics), launches, dec
@@ -754,14 +892,14 @@ def route_decode(name, data, counters, kernel, label, **kw):
     picture's md5 to equal the sidecar's (matched by POC where the
     stream's POCs are unique, else, with an IDR a frame, in output
     order: a cut of such a stream is a prefix of its output), and
-    `kernel` to have launched once per picture with an intra job and no
+    `kernel` to have launched once per picture with an intra job, the
+    edge-parameter kernel once per picture deblocked on the card and no
     other kernel at all. kw goes to decode_all. Returns (pictures,
     seconds, decoder, launches)."""
     order, want = POC_ORDER[name], load_stream(name)[1]
-    for f in counters.values():
-        f.launches = 0
+    zero(counters)
     pics, dt, dec = decode_all(data, fetch=False, **kw)
-    launches = {n: f.launches for n, f in counters.items()}
+    launches, edges = read(counters)
     got = hash_pics(pics)
     if len(set(order)) == len(order):
         by_poc = dict(zip(order, want))
@@ -773,7 +911,8 @@ def route_decode(name, data, counters, kernel, label, **kw):
           f"intra jobs; launches {launches})", flush=True)
     if not pics or n_ok != len(pics):
         raise AssertionError(f"{label}: {name} differs from the md5 sidecar")
-    need = {n: with_jobs if n == kernel else 0 for n in counters}
+    need = {n: with_jobs if n == kernel else 0
+            for n in counters if n != "edge_params"} | edges
     if launches != need or with_jobs == 0:
         raise AssertionError(f"{label}: {name} launched {launches}, not "
                              f"{need}")
@@ -788,7 +927,7 @@ def check_no_band_plan(counters, banded_4k_ms, reps=REPS):
     kernel is timed on 4K frame 0 in this layout (meta in decode order)
     beside the banded kernel on the same frame."""
     from openhevc_tpu_torch.models import pipeline
-    out = {"launches": {}}
+    out = {"launches": {}, "edge_launches": {}}
     with patched(pipeline, "band_plan", lambda *a: None):
         for name, k in (("main10_4k", None),
                         ("ra_main10_4k", RA_4K_PICTURES)):
@@ -801,6 +940,7 @@ def check_no_band_plan(counters, banded_4k_ms, reps=REPS):
                 raise AssertionError(f"no band plan: {name} decoded "
                                      f"{len(pics)} frames")
             out["launches"][name] = launches["intra_fused"]
+            out["edge_launches"][name] = launches["edge_params"]
             out[f"{name}_decode_fps"] = len(pics) / dt
         fs = parse_only(first_frames(load_stream("main10_4k")[0], 1))[0]
         k = pipeline.TorchEngine("cuda").prepare(fs)
@@ -866,7 +1006,8 @@ def check_python_parser(counters):
                                  f"{[p.poc for p in pics]}")
         out[name] = {"pictures": n, "parse_ms": parse_ms,
                      "decode_ms_per_picture": dt * 1e3 / n,
-                     "launches": launches[kernel]}
+                     "launches": launches[kernel],
+                     "edge_launches": launches["edge_params"]}
     return out
 
 
@@ -879,7 +1020,7 @@ def check_host_filters(counters):
     from openhevc_tpu_torch.models import pipeline
     data = first_frames(load_stream("ra_tiles_1080p")[0],
                         HOST_FILTER_PICTURES)
-    with patched(pipeline, "prep_filters", lambda fs: None):
+    with patched(pipeline, "prep_filters", lambda fs, **kw: None):
         pics, _dt, dec, launches = route_decode(
             "ra_tiles_1080p", data, counters, "intra_fused_banded",
             "host filters", sync_timers=True)
@@ -890,7 +1031,8 @@ def check_host_filters(counters):
     return {"pictures": len(pics),
             "stage_ms_per_picture": {k: v / len(pics)
                                      for k, v in st.items()},
-            "launches": launches["intra_fused_banded"]}
+            "launches": launches["intra_fused_banded"],
+            "edge_launches": launches["edge_params"]}
 
 
 def check_cli():
@@ -986,7 +1128,8 @@ def wave_decode(name, mesh, counters):
     just before; every frame md5-exact; launches of the stream's kernel
     equal to the prediction from the parse (frame axis: one a wave
     member with intra jobs; tile axis: one a tile shard whose group
-    holds jobs), of the other kernels 0. Then one decode on one device
+    holds jobs), of the edge-parameter kernel one a picture deblocked on
+    the card, of the other kernels 0. Then one decode on one device
     and one more with the mesh, in turns with the first (host speed
     drifts within a call), each md5-checked. Returns a dict of what was
     seen (waves, launches, fps with the mesh and on one device)."""
@@ -1016,10 +1159,9 @@ def wave_decode(name, mesh, counters):
     with patched(MeshFrameDecoder, "reconstruct_wave", spy):
         decode(first_frames(data, 4 if two else 2))            # warm-up
         waves.clear()
-        for f in counters.values():
-            f.launches = 0
+        zero(counters)
         pics, dt = decode(data)
-        launches = {n: f.launches for n, f in counters.items()}
+        launches, edges = read(counters)
     got = hash_pics(pics)
     times = {"wave": [dt], "one": []}
     for label, m in (("one", None), ("wave", mesh)):
@@ -1052,7 +1194,8 @@ def wave_decode(name, mesh, counters):
     if len(pics) != len(want) or n_ok != len(want):
         raise AssertionError(f"waves, {axis}: {name} differs from the md5 "
                              f"sidecar")
-    need = {n: predicted if n == KERNEL_OF[name] else 0 for n in counters}
+    need = {n: predicted if n == KERNEL_OF[name] else 0
+            for n in counters if n != "edge_params"} | edges
     if launches != need or predicted == 0:
         raise AssertionError(f"waves, {axis}: {name} launched {launches}, "
                              f"predicted {need}")
@@ -1260,12 +1403,14 @@ def _keeper(entry):
     return keep
 
 
-def check_feature_routes(entry, routes, stats, launches=None):
+def check_feature_routes(entry, routes, stats, launches=None, edges=0):
     """Parts 1-2 of phase 8 beside the md5s: every picture took the route
     its manifest entry predicts (parse, filters, plan, jobs, inter and
     PCM blocks, in decode order), the Python parser took the predicted
-    slices, and, with `launches` (the three counters of the decode),
-    each kernel launched once a picture of its plan with jobs."""
+    slices, and, with `launches` (the counters of the decode), each
+    intra kernel launched once a picture of its plan with jobs and,
+    where `launches` counts it, the edge-parameter kernel `edges` times
+    (once a picture deblocked on the card)."""
     name = entry["name"]
     if routes != entry["routes"]:
         bad = [(g, w) for g, w in zip(routes, entry["routes"]) if g != w]
@@ -1284,6 +1429,8 @@ def check_feature_routes(entry, routes, stats, launches=None):
             "intra_fused_banded": sum(r["jobs"] > 0 and r["plan"] == "banded"
                                       for r in routes),
             "intra_fused_serial": 0}
+    if "edge_params" in launches:
+        need["edge_params"] = edges
     if launches != need:
         raise AssertionError(f"{name}: launches {launches}, predicted "
                              f"{need}")
@@ -1375,14 +1522,14 @@ def decode_feature_stream(entry, counters, banded=False, keep=None,
                                            entry["chroma_format_idc"]))
             entry = dict(entry, routes=[dict(r, plan="banded")
                                         for r in entry["routes"]])
-        for f in counters.values():
-            f.launches = 0
+        zero(counters)
         sync(device)
         t0 = time.perf_counter()
         pics = dec.decode(data) + dec.flush()
         sync(device)
         secs = time.perf_counter() - t0
     launches = {n: f.launches for n, f in counters.items()}
+    edges = EDGE_NEED[0]
     got = hash_pics(pics)
     n_ok = sum(g == w for g, w in zip(got, want))
     print(f"phase8 {entry['name']} (tier {entry['tier']}, "
@@ -1393,7 +1540,8 @@ def decode_feature_stream(entry, counters, banded=False, keep=None,
         raise AssertionError(f"{entry['name']} ({label} plan): decoded "
                              f"pictures differ from the md5 sidecar "
                              f"({n_ok}/{len(want)}, {len(got)} decoded)")
-    check_feature_routes(entry, dec.routes, dec.stats, launches or None)
+    check_feature_routes(entry, dec.routes, dec.stats, launches or None,
+                         edges)
     return dec, pics, {"frames": len(pics), "md5_ok": n_ok,
                        "seconds": secs, "launches": launches}
 
@@ -1514,6 +1662,7 @@ def shvc_layer_class(counters, keep, banded=False):
             super().__init__(*a, **kw)
             self.routes, self.kept, self.col = [], [], {}
             self.launches = dict.fromkeys(counters, 0)
+            self.edges = 0          # its pictures deblocked on the card
 
         def _engine(self):
             if self._torch_engine is None:
@@ -1530,6 +1679,7 @@ def shvc_layer_class(counters, keep, banded=False):
             if keep(self.layer, fs):
                 self.kept.append((fs, dict(refs)))
             before = {n: f.launches for n, f in counters.items()}
+            edges = EDGE_NEED[0]
             with contextlib.ExitStack() as st:
                 if banded:
                     st.enter_context(forced_banded(
@@ -1539,6 +1689,7 @@ def shvc_layer_class(counters, keep, banded=False):
             self.routes[-1]["col_il"] = self.col.pop(fs.poc, False)
             for n, f in counters.items():
                 self.launches[n] += f.launches - before[n]
+            self.edges += EDGE_NEED[0] - edges
             return out
 
     return LayerDecoder
@@ -1584,8 +1735,7 @@ def decode_shvc(entry, counters, two_layers=True, banded=False, keep=None,
     else:
         dec = layer(device=device)
         decs, want = {"bl": dec}, want_bl
-    for f in counters.values():
-        f.launches = 0
+    zero(counters)
     sync(device)
     t0 = time.perf_counter()
     pics = dec.decode(data) + dec.flush()
@@ -1608,7 +1758,7 @@ def decode_shvc(entry, counters, two_layers=True, banded=False, keep=None,
             dict(entry, name=f"{entry['name']} {lay} ({what}, {plan} plan)",
                  routes=routes,
                  python_slices=entry["python_slices"][lay]),
-            d.routes, d.stats, d.launches or None)
+            d.routes, d.stats, d.launches or None, d.edges)
     by_layer = {lay: d.launches for lay, d in decs.items()}
     if counters and total != {n: sum(v[n] for v in by_layer.values())
                               for n in counters}:
@@ -1804,9 +1954,11 @@ def run_shvc_matrix(counters, device="cuda"):
 def run():
     """Phases 3-10 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
+    from openhevc_tpu_torch.ops.filters import edge_params
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
-                "intra_fused_serial": ifm.intra_fused_serial}
+                "intra_fused_serial": ifm.intra_fused_serial,
+                "edge_params": edge_params}
 
     # ---- phase 3: each kernel vs its plain version -----------------------
     fs = parse_only(first_frames(load_stream("i_main_832x480")[0], 1))[0]
@@ -1847,6 +1999,11 @@ def run():
           f"max_abs_err {r444['max_abs_err']}", flush=True)
     r["max_abs_err"] = max(r["max_abs_err"], r444["max_abs_err"])
     r["rext_444_frame0"] = r444
+    edge = check_edge_params()
+    print(f"phase3 edge_params == plain == prep_filters on POC "
+          f"{edge['poc']} of {os.path.basename(EDGE_STREAM)} "
+          f"({edge['segments']} edge segments): max_abs_err "
+          f"{edge['max_abs_err']}", flush=True)
     ups = check_shvc_2layer_upsample()
     print(f"phase3 upsample {ups['bl']} -> {ups['el']} == per-sample "
           f"evaluation of the tap plan: max_abs_err {ups['max_abs_err']}",
@@ -1856,10 +2013,11 @@ def run():
     # ---- phase 4: the main path of each stream ---------------------------
     runs = {name: main_path(name, counters)
             for name, _kind, _frames in CONFIGS}
+    recs["edge_params"] = edge
     for kernel, r in recs.items():
         r["launches_by_stream"] = {
             name: launches[kernel] for name, (_, launches, _) in runs.items()
-            if KERNEL_OF[name] == kernel}
+            if kernel in (KERNEL_OF[name], "edge_params")}
         r["launches"] = sum(r["launches_by_stream"].values())
 
     # ---- phase 5: the routes off the main path ---------------------------
@@ -1877,6 +2035,11 @@ def run():
         "no_band_plan": 0,
         "python_parser": py["ra_tiles_1080p"]["launches"],
         "host_filters": hf["launches"]}
+    edge["launches_by_route"] = {
+        "main_path": edge["launches"],
+        "no_band_plan": sum(nbp["edge_launches"].values()),
+        "python_parser": sum(row["edge_launches"] for row in py.values()),
+        "host_filters": hf["edge_launches"]}
     recs["intra_fused"]["main10_4k_frame0_whole_layout"] = {
         k: nbp[k] for k in ("ms", "bound_ms", "jobs")}
 
@@ -1893,7 +2056,8 @@ def run():
     r["tile_shard_ra_tiles_1080p"] = shard
 
     # ---- phase 7: the bench script -----------------------------------------
-    check_bench(runs["i_main_832x480"][1])
+    check_bench({n: c for n, c in runs["i_main_832x480"][1].items()
+                 if n != "edge_params"})
 
     # ---- phase 8: the feature matrix ---------------------------------------
     fm = run_feature_matrix(counters)
@@ -1917,7 +2081,8 @@ def run():
         for mode, row in by_mode.items():
             for key, v in row.items():
                 print(f"{name} mc_{mode}_mode {key} {v}")
-    for r, frame in zip(recs.values(), ("i_main_832x480", "main10_4k")):
+    for r, frame in zip(list(recs.values())[:2],
+                        ("i_main_832x480", "main10_4k")):
         print(f"{r['name']}_kernel_ms_per_frame {r['ms']} ({frame} frame 0; "
               f"{r['us_per_level']} us a level, {r['us_per_job']} us a job, "
               f"grid {r['grid']})")
@@ -1927,6 +2092,9 @@ def run():
               f"({r.get('plain_jobs', r['jobs'])} jobs)")
         print(f"{r['name']}_launches {r['launches']} "
               f"{json.dumps(r['launches_by_stream'])}")
+    print(f"edge_params_launches {edge['launches']} "
+          f"{json.dumps(edge['launches_by_stream'])} (phase 4, one a "
+          f"picture deblocked on the card)")
     print(f"intra_fused_kernel_ms_main10_4k_frame0 {whole_4k_ms} (same "
           f"band-sorted meta and planes)")
     print(f"intra_fused_banded_kernel_ms_rext_444_frame0 {r444['ms']} "
@@ -1986,6 +2154,11 @@ def run():
     for r in recs.values():
         print(f"{r['name']}_launches_by_route "
               f"{json.dumps(r['launches_by_route'])}", flush=True)
+    print(f"edge_params_kernel_ms {edge['ms']} (POC {edge['poc']} of "
+          f"{os.path.basename(EDGE_STREAM)}, one launch between CUDA "
+          f"events, mean of {REPS}; device time {edge['device_us']} us; "
+          f"plain {edge['plain_ms']} ms; bound {edge['bound_ms']} ms for "
+          f"{edge['bytes']} B)", flush=True)
     return list(recs.values())
 
 
@@ -2020,7 +2193,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    kernels = run()
+    with edge_watch():
+        kernels = run()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

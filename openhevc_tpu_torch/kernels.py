@@ -14,8 +14,11 @@ import shutil
 from .buildutil import BUILD_DIR, PKG_DIR, build_once
 
 SOURCES = {"intra_fused": "intra_fused.cu",
-           "intra_fused_banded": "intra_fused_banded.cu"}
-HEADERS = ["intra_job.cuh", "intra_sched.cuh"]   # included by every source
+           "intra_fused_banded": "intra_fused_banded.cu",
+           "edge_params": "edge_params.cu"}
+# the headers the intra sources include
+HEADERS = ["intra_job.cuh", "intra_sched.cuh"]
+INCLUDES = {"intra_fused": HEADERS, "intra_fused_banded": HEADERS}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: dict[str, ctypes.CDLL] = {}
@@ -37,7 +40,7 @@ def build(name: str) -> str:
     nvcc's report (registers, shared memory, spills) or ''."""
     csrc = os.path.join(PKG_DIR, "csrc")
     src = os.path.join(csrc, SOURCES[name])
-    deps = [src] + [os.path.join(csrc, h) for h in HEADERS]
+    deps = [src] + [os.path.join(csrc, h) for h in INCLUDES.get(name, [])]
     return build_once(lib_path(name), deps,
                       lambda out: [nvcc(), *NVCC_FLAGS, src, "-o", out])
 

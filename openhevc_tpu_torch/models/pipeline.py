@@ -8,7 +8,11 @@ Counterpart of the JAX package's models/pipeline.py main path
      meta with each job's wavefront level (`host_pack`) and, where the
      picture has them, the cross-component scale map, the sparse motion
      deltas (`motion_diff2`), the weighted-prediction grids and the
-     in-loop filters' control tensors (`ops/filters.py::prep_filters`);
+     in-loop filters' control tensors (`ops/filters.py::prep_filters`
+     without the per-edge parameters); on a deblocked picture, the
+     parser's per-4x4 grids, from which one launch right after the
+     upload makes the per-edge boundary strengths and beta / tc
+     (`ops/filters.py::edge_params`, csrc/edge_params.cu);
   2. level rebuild from the scan-prefix payload (`_arena_levels`);
   3. dequant + inverse transform per TU size (ops/idct.py) and the slot
      scatter into residual planes (`_residual_acc`);
@@ -76,7 +80,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..ops.filters import apply_filters_device, fargs_arrays, prep_filters
+from ..ops.filters import (EDGE_KEYS, FARG_KEYS, apply_filters_device,
+                           edge_inputs, edge_params, fargs_arrays,
+                           prep_filters)
 from ..ops.filters_sched import apply_loop_filters
 from ..ops.idct import residual_bucket
 from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
@@ -1047,10 +1053,18 @@ class TorchEngine:
                 host.append(bounds)
             want_filters = shard is None and (
                 not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma)
-            pff = prep_filters(fs) if want_filters else None
+            pff = prep_filters(fs, edges=False) if want_filters else None
+            n_edge = 0
             if pff is not None:
+                # the per-edge parameters are made on the device from the
+                # parser's grids (`edge_params`); the rest rides as it is
+                n_edge = len(EDGE_KEYS) if pff["do_deblock"] else 0
                 at["fargs"] = len(host)
-                host.extend(fargs_arrays(pff))
+                host.extend(fargs_arrays(pff)[n_edge:])
+            if n_edge:
+                grids, edge_kw = edge_inputs(fs)
+                at["edges"] = len(host)
+                host.extend(grids)
             if fs.pcm_blocks:
                 at["pcm"] = len(host)
                 host.extend(pcm_scatter(fs, wl, wc, hc))
@@ -1068,6 +1082,12 @@ class TorchEngine:
             self.h2d_bytes += dev[0].untyped_storage().nbytes()
         arena4, arena16, escs, meta6 = dev[:4]
         bounds = dev[at["bounds"]] if "bounds" in at else None
+        edges = ()
+        if n_edge:
+            with self._stage("edge_params"):
+                g = dev[at["edges"]:at["edges"] + len(grids)]
+                edges = edge_params(*g, **edge_kw)
+                trace.annotate(kernel=1)
 
         with self._stage("residual"):
             group = None if shard is None else \
@@ -1115,7 +1135,8 @@ class TorchEngine:
         filters = None
         if pff is not None:
             i = at["fargs"]
-            filters = dict(fargs=dev[i:i + len(fargs_arrays(pff))],
+            rest = len(FARG_KEYS) - n_edge
+            filters = dict(fargs=(*edges, *dev[i:i + rest]),
                            do_deblock=pff["do_deblock"],
                            do_sao=pff["do_sao"], cs=1 << sps.log2_ctb)
         return dict(meta=meta16, n=n, bounds=bounds, order=order,

@@ -6,10 +6,16 @@ plain torch ops here: no hand kernel, see PERF.md for their times;
 scalar truth in the JAX package: ops/deblock_np.py, ops/sao_np.py,
 ops/filters_sched.py).
 
-Design: the host derives all per-edge control data (boundary strengths,
-beta / tc thresholds, no-filter flags, per-CTB SAO parameters) as SMALL
-numpy arrays, which ride in the picture's one upload, and the device
-applies the sample stencils over the whole frame. Vertical-edge windows
+Design: the host derives the per-edge control data that depends on the
+picture's structure (no-filter flags, the CTB-16 chroma halo, per-CTB
+SAO parameters) as SMALL numpy arrays, which ride in the picture's one
+upload, and the device applies the sample stencils over the whole
+frame. The per-edge boundary strengths and beta / tc thresholds are
+made on the device from the parser's per-4x4 grids (`edge_params`: the
+kernel csrc/edge_params.cu on a card, its plain PyTorch version
+`edge_params_ref` on the CPU), on the engine's route and on a mesh's
+tile axis alike; `prep_filters` makes them with numpy only when asked
+(`edges=True`), as the yardstick of both. Vertical-edge windows
 tile a row exactly (edges are 8 apart, each window spans +-4), so a pass
 is one reshape + elementwise math; the horizontal passes run on the
 transposed plane.
@@ -26,6 +32,8 @@ JAX package's module (integers; tolerance none).
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -141,6 +149,7 @@ FARG_KEYS = ("beta_v", "tc_v", "beta_h", "tc_h", "tc_cv1", "tc_ch1",
              "tc_cv2", "tc_ch2", "sao", "nop_v", "noq_v", "nop_h",
              "noq_h", "nop_cv", "noq_cv", "nop_ch", "noq_ch", "nf4",
              "nf4c", "st_b0", "st_b2", "st_a3")
+EDGE_KEYS = FARG_KEYS[:8]       # what `edge_params` makes, in this order
 
 
 def fargs_arrays(pff):
@@ -328,9 +337,33 @@ def _chroma_stale_reads(fs):
     return None if any_bad else masks
 
 
-def prep_filters(fs):
+@functools.lru_cache(maxsize=64)
+def _chroma_qp_lut(offset: int, chroma_format_idc: int) -> np.ndarray:
+    # per-qp LUT (np.vectorize over chroma_qp ran at python rate, ~10
+    # ms/frame on 4:4:4); domain covers negative average QPs
+    # (high-bit-depth offsets)
+    lut = np.array([chroma_qp(q, offset, chroma_format_idc, 0)
+                    for q in range(-32, 64)], np.int32)
+    lut.flags.writeable = False
+    return lut
+
+
+def chroma_qp_luts(fs) -> np.ndarray:
+    """[2, 96] int32: the chroma QP (8.7.1, no bit-depth offset) of Cb and
+    Cr for the average luma QPs -32..63 of a chroma edge, with the PPS
+    and slice offsets of each component."""
+    sps, pps = fs.sps, fs.pps
+    offs = (pps.cb_qp_offset + getattr(fs, "slice_cb_qp_offset", 0),
+            pps.cr_qp_offset + getattr(fs, "slice_cr_qp_offset", 0))
+    return np.stack([_chroma_qp_lut(o, sps.chroma_format_idc)
+                     for o in offs])
+
+
+def prep_filters(fs, edges=True):
     """All control tensors for one frame's device filtering; None when
-    nothing to do. Shapes are tiny (per 4-sample edge / per CTB)."""
+    nothing to do. Shapes are tiny (per 4-sample edge / per CTB).
+    edges=False leaves out the eight per-edge parameter arrays
+    (`EDGE_KEYS`), which `edge_params` then makes on the device."""
     sps = fs.sps
     do_deblock = not fs.deblock_disabled
     do_sao = bool(sps.sao_enabled and (fs.sao_luma or fs.sao_chroma))
@@ -350,7 +383,7 @@ def prep_filters(fs):
         out["st_b0"] = masks[(1, 0)]
         out["st_b2"] = masks[(1, 1)]
         out["st_a3"] = masks[(1, -1)]
-    if do_deblock:
+    if do_deblock and edges:
         vbs, hbs = boundary_strengths_vec(fs)
         qp4 = fs.qp_y4[:h4, :w4].astype(np.int32)
         bo, to = fs.beta_offset, fs.tc_offset
@@ -383,17 +416,7 @@ def prep_filters(fs):
         Hc, Wc = H >> vs, W >> hs
         wc8, hc8 = (Wc + 7) >> 3, (Hc + 7) >> 3
         hc4, wc4 = Hc >> 2, Wc >> 2
-        for c_idx in (1, 2):
-            off = fs.pps.cb_qp_offset if c_idx == 1 else fs.pps.cr_qp_offset
-            if c_idx == 1:
-                off += getattr(fs, "slice_cb_qp_offset", 0)
-            else:
-                off += getattr(fs, "slice_cr_qp_offset", 0)
-            # per-qp LUT (np.vectorize over chroma_qp ran at python
-            # rate, ~10 ms/frame on 4:4:4); domain covers negative
-            # average QPs (high-bit-depth offsets)
-            qlut = np.array([chroma_qp(q, off, sps.chroma_format_idc, 0)
-                             for q in range(-32, 64)], np.int32)
+        for c_idx, qlut in zip((1, 2), chroma_qp_luts(fs)):
             tcv = np.zeros((hc4, wc8), np.int16)
             if wc8 > 1:
                 # chroma seg (cy4, cx8): luma edge x8=cx8<<hs, y4=cy4<<vs
@@ -424,6 +447,232 @@ def prep_filters(fs):
             sao[:, :, 1:, 0] = 0
         out["sao"] = sao
     return out
+
+
+# =========================================================================
+# Per-edge parameters on the device
+# =========================================================================
+
+def edge_inputs(fs):
+    """`edge_params`' arguments for one picture: (grids, scalars), for
+    `edge_params(*grids, **scalars)` once the grids are on the device.
+    grids: pred_mode, cbf_luma4, bounds_v, bounds_h (uint8), qp_y4
+    (int8), all [gh, gw] as the parser made them (CTB-padded), the
+    [2, 96] chroma QP tables (`chroma_qp_luts`), then, on a picture with
+    inter blocks, the motion grids pred_flag (uint8 [gh, gw]), mv (int16
+    [gh, gw, 2, 2]: H.265 bounds MVs to 16 bits) and refpoc (int32
+    [gh, gw, 2]). A picture without inter blocks is intra throughout,
+    where the motion never decides a strength."""
+    sps = fs.sps
+    grids = [np.asarray(fs.pred_mode, np.uint8),
+             np.asarray(fs.cbf_luma4, np.uint8),
+             np.asarray(fs.bounds_v, np.uint8),
+             np.asarray(fs.bounds_h, np.uint8),
+             np.asarray(fs.qp_y4, np.int8), chroma_qp_luts(fs)]
+    if fs.inter_pbs and fs.motion is not None:
+        mc = fs.motion
+        grids += [np.asarray(mc.pred_flag, np.uint8),
+                  np.asarray(mc.mv, np.int16),
+                  np.asarray(mc.refpoc, np.int32)]
+    return grids, dict(H=sps.height, W=sps.width, hs=sps.hshift1,
+                       vs=sps.vshift1, bd=sps.bit_depth,
+                       bdc=sps.bit_depth_chroma,
+                       beta_offset=int(fs.beta_offset),
+                       tc_offset=int(fs.tc_offset))
+
+
+def edge_shapes(H: int, W: int, hs: int, vs: int):
+    """Shapes of the eight `EDGE_KEYS` arrays of a H x W picture."""
+    Hc, Wc = H >> vs, W >> hs
+    v, h = (H >> 2, W >> 3), (H >> 3, W >> 2)
+    cv, ch = (Hc >> 2, (Wc + 7) >> 3), ((Hc + 7) >> 3, Wc >> 2)
+    return [v, v, h, h, cv, ch, cv, ch]
+
+
+def _mv_bs_ref(pf, mv, poc, p, q):
+    """The MV / reference rule of the boundary strength (`_mv_bs_vec`)
+    between the blocks at flat grid indices p and q: int32, 1 where the
+    motion differs. `_mv_bs_vec`'s test of identical motion (reference
+    indices too) is left out: where it holds, the POC and MV tests below
+    give 0 as well."""
+    fp, fq = pf[p], pf[q]
+    mp, mq = mv[p], mv[q]                        # [..., list, xy]
+    p0, p1 = poc[p][..., 0], poc[p][..., 1]
+    q0, q1 = poc[q][..., 0], poc[q][..., 1]
+
+    def near(a, b):
+        return ((a - b).abs() < 4).all(-1)
+
+    ns0, ns1 = near(mp[..., 0, :], mq[..., 0, :]), \
+        near(mp[..., 1, :], mq[..., 1, :])
+    nx0, nx1 = near(mp[..., 1, :], mq[..., 0, :]), \
+        near(mp[..., 0, :], mq[..., 1, :])
+    straight, crossed = ns0 & ns1, nx0 & nx1
+    same_all = (q0 == p0) & (q0 == q1) & (p0 == p1)
+    bi_zero = torch.where(
+        same_all, straight | crossed,
+        torch.where((p0 == q0) & (p1 == q1), straight,
+                    (p1 == q0) & (p0 == q1) & crossed))
+    lp0, lq0 = (fp & 1) != 0, (fq & 1) != 0
+    near_u = torch.where(lp0 == lq0, torch.where(lp0, ns0, ns1),
+                         torch.where(lp0, nx1, nx0))
+    uni_zero = (torch.where(lp0, p0, p1) == torch.where(lq0, q0, q1)) & \
+        near_u
+    zero = torch.where((fp == 3) & (fq == 3), bi_zero,
+                       (fp != 3) & (fq != 3) & uni_zero)
+    return (~zero).to(torch.int32)
+
+
+def edge_params_ref(pm, cbf, bv, bh, qp, qlut, *motion, H, W, hs, vs, bd,
+                    bdc, beta_offset, tc_offset):
+    """Plain PyTorch version of `edge_params`, segment for segment the
+    kernel's arithmetic (csrc/edge_params.cu), on any device; returns the
+    eight int16 arrays of `EDGE_KEYS`."""
+    dev = pm.device
+    gw = pm.shape[1]
+    i32 = [t.reshape(-1).to(torch.int32) for t in (pm, cbf, bv, bh, qp)]
+    pm_, cbf_, bv_, bh_, qp_ = i32
+    if motion:
+        pf, mv, poc = motion
+        pf = pf.reshape(-1).to(torch.int32)
+        mv = mv.reshape(-1, 2, 2).to(torch.int32)
+        poc = poc.reshape(-1, 2)
+    qlut = qlut.to(torch.int32)
+    beta_t = torch.as_tensor(BETA_TABLE, device=dev)
+    tc_t = torch.as_tensor(TC_TABLE, device=dev)
+
+    def bs(p, q, tu, ok):
+        intra = (pm_[p] == 1) | (pm_[q] == 1)
+        anycbf = (cbf_[p] != 0) | (cbf_[q] != 0)
+        mvbs = _mv_bs_ref(pf, mv, poc, p, q) if motion else 0
+        b = torch.where(intra, torch.where(tu, 2, 0),
+                        torch.where(tu & anycbf, 1, mvbs))
+        return torch.where(ok, b, 0)
+
+    def vertical(y4, x8):               # the edge at luma column 8 * x8
+        q = y4 * gw + 2 * x8
+        ok = x8 > 0
+        p = torch.where(ok, q - 1, q)
+        return p, q, bs(p, q, bv_[q] != 0, ok)
+
+    def horizontal(y8, x4):             # the edge at luma row 8 * y8
+        q = 2 * y8 * gw + x4
+        ok = y8 > 0
+        p = torch.where(ok, q - gw, q)
+        return p, q, bs(p, q, bh_[q] != 0, ok)
+
+    def avg_qp(p, q):
+        return (qp_[p] + qp_[q] + 1) >> 1
+
+    def luma(p, q, b):
+        qpa = avg_qp(p, q)
+        beta = beta_t[(qpa + beta_offset).clamp(0, 51)] << (bd - 8)
+        tc = tc_t[(qpa + 2 * (b - 1) + tc_offset).clamp(0, 53)] << (bd - 8)
+        return (torch.where(b > 0, beta, 0).to(torch.int16),
+                torch.where(b > 0, tc, 0).to(torch.int16))
+
+    def chroma(p, q, b):
+        c = avg_qp(p, q).clamp(-32, 63) + 32
+        return [torch.where(b == 2, tc_t[(lut[c] + 2 + tc_offset)
+                                         .clamp(0, 53)] << (bdc - 8), 0)
+                .to(torch.int16) for lut in qlut]
+
+    def ar(n, shift=0):
+        return torch.arange(n, device=dev) << shift
+
+    v, _, h, _, cv, ch, _, _ = edge_shapes(H, W, hs, vs)
+    beta_v, tc_v = luma(*vertical(ar(v[0])[:, None], ar(v[1])[None, :]))
+    beta_h, tc_h = luma(*horizontal(ar(h[0])[:, None], ar(h[1])[None, :]))
+    tc_cv1, tc_cv2 = chroma(*vertical(ar(cv[0], vs)[:, None],
+                                      ar(cv[1], hs)[None, :]))
+    tc_ch1, tc_ch2 = chroma(*horizontal(ar(ch[0], vs)[:, None],
+                                        ar(ch[1], hs)[None, :]))
+    return beta_v, tc_v, beta_h, tc_h, tc_cv1, tc_ch1, tc_cv2, tc_ch2
+
+
+# name, dtype and trailing dims of each grid `edge_params` takes
+_EDGE_GRIDS = (("pred_mode", torch.uint8, ()), ("cbf", torch.uint8, ()),
+               ("bounds_v", torch.uint8, ()), ("bounds_h", torch.uint8, ()),
+               ("qp", torch.int8, ()), ("pred_flag", torch.uint8, ()),
+               ("mv", torch.int16, (2, 2)), ("refpoc", torch.int32, (2,)))
+
+
+def _check_edges(grids, qlut, H, W, hs, vs, bd, bdc):
+    dev = grids[0].device
+    shape = tuple(grids[0].shape)
+    if len(grids) not in (5, 8):
+        raise ValueError(f"{len(grids) - 5} motion grids: want 0 or 3")
+    for (name, dt, tail), t in zip(_EDGE_GRIDS, grids):
+        if t.dtype != dt:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {dt}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, pred_mode on {dev}")
+        if tuple(t.shape) != shape + tail:
+            raise ValueError(f"{name} {tuple(t.shape)} with grids {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if qlut.dtype != torch.int32 or tuple(qlut.shape) != (2, 96) or \
+            qlut.device != dev or not qlut.is_contiguous():
+        raise ValueError(f"qlut {qlut.dtype} {tuple(qlut.shape)} on "
+                         f"{qlut.device}: want contiguous int32 [2, 96]")
+    if H <= 0 or W <= 0 or H % 8 or W % 8 or len(shape) != 2 or \
+            shape[0] < H >> 2 or shape[1] < W >> 2:
+        raise ValueError(f"picture {W}x{H} with grids {shape}")
+    if hs not in (0, 1) or vs not in (0, 1) or not 8 <= bd <= 16 or \
+            not 8 <= bdc <= 16:
+        raise ValueError(f"hs {hs}, vs {vs}, bit depths {bd} / {bdc}")
+
+
+def edge_params(pm, cbf, bv, bh, qp, qlut, *motion, H, W, hs, vs, bd, bdc,
+                beta_offset, tc_offset):
+    """The deblocking filter's per-edge parameters of a H x W picture,
+    the eight int16 arrays of `EDGE_KEYS` that `apply_filters_device`
+    takes, from the picture's per-4x4 grids (`edge_inputs`): pm, cbf, bv,
+    bh uint8 and qp int8 [gh, gw] (gh >= H / 4, gw >= W / 4), qlut int32
+    [2, 96], then on a picture with inter blocks the motion: pred_flag
+    uint8 [gh, gw], mv int16 [gh, gw, 2, 2], refpoc int32 [gh, gw, 2].
+    Equal, array for array, to `prep_filters`' numpy arrays.
+
+    CUDA tensors make ONE launch of csrc/edge_params.cu on the current
+    stream into one new buffer and count it; CPU tensors run
+    `edge_params_ref`."""
+    grids = [pm, cbf, bv, bh, qp]
+    _check_edges(grids + list(motion), qlut, H, W, hs, vs, bd, bdc)
+    kw = dict(H=H, W=W, hs=hs, vs=vs, bd=bd, bdc=bdc,
+              beta_offset=beta_offset, tc_offset=tc_offset)
+    if pm.device.type == "cpu":
+        return edge_params_ref(*grids, qlut, *motion, **kw)
+    if pm.device.type != "cuda":
+        raise ValueError(f"unsupported device {pm.device}")
+    shapes = edge_shapes(H, W, hs, vs)
+    sizes = [a * b for a, b in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.int16, device=pm.device)
+    pf, mv, poc = [t.data_ptr() for t in motion] or [None] * 3
+    lib = _lib()
+    with torch.cuda.device(pm.device):
+        rc = lib.edge_params_launch(
+            *(t.data_ptr() for t in grids), pf, mv, poc, pm.shape[1],
+            qlut.data_ptr(), out.data_ptr(), H, W, hs, vs, bd, bdc,
+            beta_offset, tc_offset, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"edge_params launch failed: cudaError_t {rc}")
+    edge_params.launches += 1
+    return tuple(a.view(s) for a, s in zip(out.split(sizes), shapes))
+
+
+edge_params.launches = 0
+
+
+def _lib():
+    """The kernel library, built at first use, its argument types set."""
+    from .. import kernels
+    lib = kernels.load("edge_params")
+    fn = lib.edge_params_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 8 + [I, P, P] + [I] * 8 + [P]
+        fn.restype = I
+    return lib
 
 
 # =========================================================================

@@ -25,9 +25,12 @@ it over a `DeviceMesh`:
   device takes each CTB from its shard. The in-loop filters then run
   band-sharded (`band_filters`): shard g deblocks and SAOs CTB rows
   [g * rb, (g + 1) * rb), rb = ceil(ctbs_h / n_tile), on a band with a
-  one-CTB halo, and the bands' interiors make up the picture. A picture
-  whose filters lie outside the whole-frame device model (`prep_filters`
-  returns None) takes the host-filter route instead.
+  one-CTB halo, and the bands' interiors make up the picture. The
+  per-edge deblocking parameters are made on the first device by one
+  `edge_params` launch, as on the engine's route, and cut per band with
+  the other control grids. A picture whose filters lie outside the
+  whole-frame device model (`prep_filters` returns None) takes the
+  host-filter route instead.
 
 What the JAX package does for its static shapes, and the port leaves
 out: a wave is not padded to a multiple of the mesh (`mesh.py:321-322,
@@ -48,6 +51,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 AXES = (("frame",), ("frame", "tile"))
 
@@ -153,7 +158,10 @@ def band_filters(y, cb, cr, pff, *, sps, devices, out_device=None):
     (y's by default).
 
     y [H, W], cb / cr [Hc, Wc] int32, the unfiltered picture; pff: its
-    `prep_filters` dict (numpy). Returns filtered (y, cb, cr) int32."""
+    `prep_filters` dict, whose grids are numpy arrays (uploaded in one
+    copy a band) or tensors (the per-edge parameters `edge_params` made,
+    cut and copied to the band's device). Returns filtered (y, cb, cr)
+    int32."""
     from ..models.pipeline import _upload
     from ..ops.filters import FARG_KEYS, apply_filters_device, fargs_arrays
     out_device = y.device if out_device is None else out_device
@@ -177,7 +185,10 @@ def band_filters(y, cb, cr, pff, *, sps, devices, out_device=None):
         # it has not (`fargs_arrays`) rides as it is
         grids = [_band_rows(a, g, rb, units[k]) if k in pff else a
                  for k, a in zip(FARG_KEYS, fargs)]
-        fb = _upload(grids, dev)
+        up = iter(_upload([a for a in grids if isinstance(a, np.ndarray)],
+                          dev))
+        fb = [next(up) if isinstance(a, np.ndarray) else a.to(dev)
+              for a in grids]
         planes = [_band_rows(p, g, rb, u).to(dev)
                   for p, u in ((y, cs), (cb, csv), (cr, csv))]
         ybounds = ((cs - lo, H + cs - lo),
@@ -252,9 +263,10 @@ class MeshFrameDecoder:
         """One member on the tile axis: the masked combine of its tile
         shards' planes on devices[0], then its filters (band-sharded over
         `devices`, or the host-filter route), crop and downcast."""
-        from ..models.pipeline import (OX, OY, TorchPlanes, host_filtered,
-                                       pack_planes)
-        from ..ops.filters import prep_filters
+        from ..models.pipeline import (OX, OY, TorchPlanes, _upload,
+                                       host_filtered, pack_planes)
+        from ..ops.filters import (EDGE_KEYS, edge_inputs, edge_params,
+                                   prep_filters)
         sps = fs.sps
         H, W, Hc, Wc = ks[0]["dims"]
         hs, vs, bd = sps.hshift1, sps.vshift1, sps.bit_depth
@@ -273,10 +285,17 @@ class MeshFrameDecoder:
             cb = torch.where(mc == g, chroma[0, OY:OY + Hc, OX:OX + Wc], cb)
             cr = torch.where(mc == g, chroma[1, OY:OY + Hc, OX:OX + Wc], cr)
         want = not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma
-        pff = prep_filters(fs) if want else None
+        pff = prep_filters(fs, edges=False) if want else None
         if want and pff is None:
             return host_filtered(fs, pack_planes(y, cb, cr, bd), H, W, Hc,
                                  Wc)
+        if pff is not None and pff["do_deblock"]:
+            # the per-edge parameters, made on devices[0] from the
+            # parser's grids as the engine makes them
+            with trace.span("edge_params", kernel=1):
+                grids, kw = edge_inputs(fs)
+                pff.update(zip(EDGE_KEYS,
+                               edge_params(*_upload(grids, dev0), **kw)))
         if pff is not None:
             y, cb, cr = band_filters(y, cb, cr, pff, sps=sps,
                                      devices=devices, out_device=dev0)

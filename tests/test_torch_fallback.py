@@ -322,7 +322,7 @@ def test_host_filter_route_matches_np(key, monkeypatch):
     from openhevc_tpu_torch.models import pipeline
     data = _host_filtered_stream(key)
     want = _np(data)
-    monkeypatch.setattr(pipeline, "prep_filters", lambda fs: None)
+    monkeypatch.setattr(pipeline, "prep_filters", lambda fs, **kw: None)
 
     class Timed(pipeline.TorchEngine):
         def __init__(self, device):
@@ -341,7 +341,7 @@ def test_host_filter_route_matches_jax_decoder(monkeypatch):
     from openhevc_tpu_torch.models import pipeline
     data = _intra_filtered("ctb16")[0]
     want = _jax(data)
-    monkeypatch.setattr(pipeline, "prep_filters", lambda fs: None)
+    monkeypatch.setattr(pipeline, "prep_filters", lambda fs, **kw: None)
     rext.assert_same(rext.decode(_port(), data), want)
 
 

@@ -7,6 +7,9 @@ the filter functions alone, 4:2:2 / 4:4:4. Then whole decodes with the
 filters on, intra and inter, vs `Decoder("np")`, and a halo pattern
 outside the model, which takes the host-scheduled filters. Tolerance:
 none (integer samples)."""
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,9 @@ import torch
 from conftest import make_frames
 from test_device_filters import _capture_frames, _frames_fmt
 from test_torch_banded import _force_banded
+from test_torch_edge_params import (EDGE_STREAMS, ROOT, assert_edges_equal,
+                                    deblocked, device_edges,
+                                    one_thread)  # noqa: F401  (a fixture)
 from test_torch_inter import (assert_same, decode, lowdelay, np_decode,
                               random_access, stream)
 
@@ -167,6 +173,163 @@ def test_inter_boundary_strengths_match_jax():
     assert seen > 0
 
 
+# ---- the per-edge parameters on the device (`edge_params`) -----------------
+
+def _numpy(pff):
+    """A `prep_filters` dict of the JAX package, its arrays as numpy."""
+    return {k: np.asarray(v) for k, v in pff.items()}
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("path", EDGE_STREAMS)
+def test_edge_params_plain_version_equals_prep_filters(path):
+    """Every deblocked picture of the benchmark's 1080p stream and of the
+    deblocked feature streams: the plain PyTorch `edge_params` gives the
+    JAX package's `prep_filters`' eight per-edge arrays, array for array,
+    and the port's numpy `prep_filters` gives them too."""
+    from openhevc_tpu.ops import filters_jax
+    pics = deblocked(path)
+    assert pics
+    for fs, pff in pics:
+        got = device_edges(fs, "cpu")
+        assert_edges_equal(got, _numpy(filters_jax.prep_filters(fs)))
+        assert_edges_equal(got, pff)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("path,offsets", [
+    ("feature_streams/422_b_filters_tmvp.265", (-12, 12, 7, -5)),
+    ("feature_streams/444_b_filters.265", (6, 4, -12, 12)),
+    ("feature_streams/main12_filters.265", (12, -12, 12, -12)),
+    ("feature_streams/f_pcm_lf_disabled.265", (-6, -2, 3, 3)),
+])
+def test_edge_params_with_offsets(path, offsets):
+    """No committed stream carries non-zero beta / tc offsets or slice
+    chroma QP offsets: set on the parsed pictures (every version reads
+    the same fields), they move the clips and the chroma tables alike in
+    the plain version, the JAX package's and the port's `prep_filters`."""
+    from openhevc_tpu.ops import filters_jax
+    from openhevc_tpu_torch.ops import filters
+    bo, to, cb, cr = offsets
+    for fs, plain in deblocked(path):
+        fs.beta_offset, fs.tc_offset = bo, to
+        fs.slice_cb_qp_offset, fs.slice_cr_qp_offset = cb, cr
+        pff = filters.prep_filters(fs)
+        assert any(not np.array_equal(pff[k], plain[k])
+                   for k in filters.EDGE_KEYS)
+        got = device_edges(fs, "cpu")
+        assert_edges_equal(got, _numpy(filters_jax.prep_filters(fs)))
+        assert_edges_equal(got, pff)
+
+
+def test_mv_rule_needs_no_reference_index():
+    """`_mv_bs_vec`'s test of identical motion (reference indices too)
+    never changes a strength: the plain version without it agrees on
+    random motion with equal and unequal indices, every flag pairing."""
+    from openhevc_tpu_torch.ops.filters import _mv_bs_ref, _mv_bs_vec
+    rng = np.random.default_rng(7)
+    h4, w4 = 64, 96
+    mc = SimpleNamespace(
+        pred_flag=rng.integers(0, 4, (h4, w4)).astype(np.uint8),
+        mv=rng.integers(-5, 5, (h4, w4, 2, 2)).astype(np.int32),
+        ref_idx=rng.integers(0, 2, (h4, w4, 2)).astype(np.int8),
+        refpoc=rng.choice(np.array([0, 4, 8], np.int32), (h4, w4, 2)))
+    # half the pairs copy p's motion to q: identical motion, either index
+    same = rng.random((h4, w4 // 2)) < 0.5
+    for a in (mc.pred_flag, mc.mv, mc.refpoc):
+        a[:, 1::2][same] = a[:, 0::2][same]
+    want = _mv_bs_vec(mc, (slice(None), slice(0, w4, 2)),
+                      (slice(None), slice(1, w4, 2)))
+    flat = [torch.from_numpy(np.ascontiguousarray(a)).reshape(-1, *a.shape[2:])
+            for a in (mc.pred_flag, mc.mv, mc.refpoc)]
+    idx = torch.arange(h4 * w4).reshape(h4, w4)
+    got = _mv_bs_ref(flat[0].to(torch.int32), flat[1], flat[2],
+                     idx[:, 0::2], idx[:, 1::2])
+    assert np.array_equal(got.numpy(), want)
+    assert 0.2 < want.mean() < 0.9
+    ri_differs = same & (mc.ref_idx[:, 1::2] != mc.ref_idx[:, 0::2]).any(-1)
+    assert ri_differs.sum() > 100 and not want[ri_differs].any()
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_edge_params_keep_poc_identity_with_a_reference_missing():
+    """An inter picture one of whose references is missing from
+    `ref_planes`: the MC maps that reference onto the first one's cache
+    slot (`_pack_inter`), which would merge the two in the MV rule; the
+    engine's per-edge parameters follow the parser's POCs and equal
+    `prep_filters`' arrays."""
+    import copy
+    from openhevc_tpu.ops import filters_jax
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops import filters
+    from test_torch_inter import _captured
+    base, kw = INTER_FILTERED["p_ctb32_two_refs"]
+    data = stream(base, **dict(dict(sao=True, deblock=True), **kw))
+    checked = 0
+    for fs, refs in _captured(data):
+        for gone in sorted(refs):
+            left = {p: v for p, v in refs.items() if p != gone}
+            kept = sorted(p for p in set(fs.ref_poc_l0) | set(fs.ref_poc_l1)
+                          if p in left)
+            if not kept:
+                continue
+            # the strengths by cache slot: a POC not at hand is the first's
+            by_slot = copy.copy(fs)
+            by_slot.motion = copy.copy(fs.motion)
+            rp = fs.motion.refpoc
+            by_slot.motion.refpoc = np.where(np.isin(rp, kept), rp, kept[0])
+            if all(np.array_equal(a, b) for a, b in zip(
+                    filters.boundary_strengths_vec(by_slot),
+                    filters.boundary_strengths_vec(fs))):
+                continue
+            k = TorchEngine("cpu").prepare(fs, left)
+            assert_edges_equal(k["filters"]["fargs"][:8],
+                               _numpy(filters_jax.prep_filters(fs)))
+            assert_edges_equal(k["filters"]["fargs"][:8],
+                               filters.prep_filters(fs))
+            checked += 1
+    assert checked
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("name", ["f_ctb64", "p_ctb64",
+                                  "f_ctb64_tile_axis"])
+def test_engine_makes_no_numpy_boundary_strengths(name, monkeypatch):
+    """Filtered 4:2:0 CTB-64 pictures through the CPU engine (the intra
+    feature stream; a low-delay P stream) and through the tile axis of a
+    2 x 2 mesh: neither calls `boundary_strengths_vec` (it raises here),
+    and every picture equals the sidecar's md5 / `Decoder("np")`."""
+    from bench_torch import hash_pics
+    from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.ops import filters
+    from openhevc_tpu_torch.parallel import DeviceMesh
+    mesh = DeviceMesh([["cpu"] * 2] * 2, ("frame", "tile")) \
+        if name.endswith("tile_axis") else None
+    if name.startswith("f_ctb64"):
+        path = os.path.join(ROOT, "feature_streams", "f_ctb64.265")
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path + ".md5") as f:
+            want = f.read().split()
+    else:
+        data = stream("p", sao=True, deblock=True, ctb_log2=6, W=128,
+                      H=128)
+        want = np_decode(data)
+
+    def refuse(fs):
+        raise AssertionError("boundary_strengths_vec on the engine's route")
+
+    monkeypatch.setattr(filters, "boundary_strengths_vec", refuse)
+    got, pics = decode(Decoder(device="cpu", mesh=mesh), data)
+    assert all(p.planes.device_filtered and p.sps.log2_ctb == 6
+               for p in pics)
+    if name.startswith("f_ctb64"):
+        assert hash_pics(pics) == want
+    else:
+        assert_same(got, want)
+        assert len(pics) == 4
+
+
 # ---- whole decodes with the filters on ------------------------------------
 
 INTRA_FILTERED = {
@@ -256,7 +419,7 @@ def test_filter_pattern_outside_the_model_raises(monkeypatch):
     assert_same(got, want)
     assert not any(p.planes.device_filtered for p in pics)
     monkeypatch.undo()
-    monkeypatch.setattr(pipeline, "prep_filters", lambda fs: None)
+    monkeypatch.setattr(pipeline, "prep_filters", lambda fs, **kw: None)
     got, pics = decode(Decoder(device="cpu"), data)
     assert_same(got, want)
     assert not any(p.planes.device_filtered for p in pics)
@@ -264,7 +427,10 @@ def test_filter_pattern_outside_the_model_raises(monkeypatch):
 
 def test_filters_ride_in_the_one_upload(monkeypatch):
     """A filtered inter picture makes one host-to-device copy: arenas,
-    meta, motion deltas and the filters' control tensors together."""
+    meta, motion deltas, the filters' control tensors and, in place of
+    the eight per-edge parameter arrays, the grids that `edge_params`
+    makes them from (five per-4x4 grids, the chroma QP tables, three
+    motion grids) together."""
     from openhevc_tpu_torch.models import pipeline
     from test_torch_inter import _captured
     fs, refs = _captured(lowdelay("p", sao=True, deblock=True))[-1]
@@ -276,7 +442,7 @@ def test_filters_ride_in_the_one_upload(monkeypatch):
                         lambda arrays, dev: (uploads.append(len(arrays)),
                                              orig(arrays, dev))[1])
     k = eng.prepare(fs, refs)
-    assert uploads == [4 + 2 + len(pipeline.fargs_arrays({}))]
+    assert uploads == [4 + 2 + len(pipeline.fargs_arrays({})) - 8 + 6 + 3]
     f = k["filters"]
     assert f["do_deblock"] and f["do_sao"] and f["cs"] == 16
     assert len(f["fargs"]) == 22 and f["fargs"][0].dtype == torch.int16

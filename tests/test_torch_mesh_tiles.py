@@ -404,7 +404,7 @@ def test_host_filter_route_on_the_tile_axis(monkeypatch):
     from openhevc_tpu_torch.ops import filters
     from openhevc_tpu_torch.parallel import DeviceMesh
     data = TILED["intra_3x2"]()
-    monkeypatch.setattr(filters, "prep_filters", lambda fs: None)
+    monkeypatch.setattr(filters, "prep_filters", lambda fs, **kw: None)
     mesh = DeviceMesh([["cpu"] * 2] * 2, ("frame", "tile"))
     got, pics = _decode(Decoder(device="cpu", mesh=mesh), data)
     _assert_same(got, _decode(JaxDecoder("np"), data)[0])

@@ -34,8 +34,9 @@ LD = os.path.join(ROOT, "feature_streams", "ld_p.265")
 TWO_REFS = os.path.join(ROOT, "feature_streams", "ld_two_refs.265")
 TWO_SLICES = os.path.join(ROOT, "feature_streams", "ld_two_slices.265")
 SHVC = os.path.join(ROOT, "feature_streams", "shvc", "col_il_mv.265")
-STAGES = {"host_pack", "upload", "residual", "meta_schedule", "mc_stage1",
-          "mc_stage2", "combine", "kernel", "deblock", "sao",
+FILTERED = os.path.join(ROOT, "feature_streams", "f_ctb64.265")
+STAGES = {"host_pack", "upload", "edge_params", "residual", "meta_schedule",
+          "mc_stage1", "mc_stage2", "combine", "kernel", "deblock", "sao",
           "host_filters", "crop_pack"}
 
 
@@ -280,6 +281,26 @@ def test_hold_on_a_low_delay_stream_is_the_parse_ahead_depth_plus_one():
     assert len(held) == len(units) - dec._parse_depth - 1
     assert set(held) == {dec._parse_depth + 1}
     assert [s.attrs["fed"] for s in outs] == list(range(1, len(units) + 1))
+
+
+@pytest.mark.parametrize("on_mesh", [False, True])
+def test_edge_params_spans_name_who_made_the_parameters(on_mesh):
+    """One `edge_params` span a deblocked picture, inside its
+    `reconstruct`, with kernel 1: the engine and the tile axis of a mesh
+    both make the per-edge parameters on the device
+    (`ops/filters.py::edge_params`)."""
+    from openhevc_tpu_torch.parallel import DeviceMesh
+    mesh = DeviceMesh([["cpu"] * 2] * 2, ("frame", "tile")) if on_mesh \
+        else None
+    pics, _ = profiled(lambda: decode(Decoder(device="cpu", mesh=mesh),
+                                      aus(FILTERED)))
+    sp = trace.spans()
+    by_id = {s.id: s for s in sp}
+    got = [s for s in sp if s.name == "edge_params"]
+    assert len(got) == len(pics) == 2
+    for s in got:
+        assert s.attrs == {"kernel": 1}
+        assert by_id[s.parent].name == "reconstruct"
 
 
 def test_sync_timers_keep_their_stages_with_the_tracer_on(monkeypatch):
