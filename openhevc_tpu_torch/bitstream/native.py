@@ -101,6 +101,8 @@ class _Outputs(ctypes.Structure):
         ("n_pcm", ctypes.c_int32), ("n_pb", ctypes.c_int32),
         ("lvl_used", ctypes.c_int32), ("pcm_used", ctypes.c_int32),
         ("error", ctypes.c_int32),
+        ("threads", ctypes.c_int32), ("fallback", ctypes.c_int32),
+        ("wave_wait_us", ctypes.c_int64),
     ]
 
 
@@ -429,6 +431,13 @@ def _parse_native(segments, sps, pps, nal_type, poc, ref_list, ss_starts,
     fs.ref_poc_l0 = [rp for rp, _ in ref_list[0]]
     fs.ref_poc_l1 = [rp for rp, _ in ref_list[1]]
     fs.weights = sh.weighted_pred_table   # reconstruction-side WP combine
+    # the entry points handed over (1: none), the workers that parsed
+    # them (1: serial), whether a failed threaded attempt left the
+    # result to the serial re-parse, and the workers' summed wait on
+    # the WPP row above
+    fs.parse_stats = dict(substreams=max(int(params[0].num_substreams), 1),
+                          threads=int(o.threads), fallback=int(o.fallback),
+                          wave_wait_us=int(o.wave_wait_us))
     # CTB order (tile-scan) for the loop-filter schedule + tile-aware zscan
     if pps.tiles_enabled:
         from .ps import ctb_tile_maps

@@ -453,10 +453,12 @@ class Decoder:
                                 route="native"):
                     cmv = cm() if callable(cm) else cm
                     try:
-                        return parse_slice_native(
+                        fs = parse_slice_native(
                             rbsp, sps, pps, sh, nal_type, poc,
                             ref_list=rl, ss_starts=ss_starts,
                             col_motion=cmv, parse_threads=pt)
+                        trace.annotate(**fs.parse_stats)
+                        return fs
                     except ValueError:
                         # the native core refused the slice (a capacity
                         # or feature edge): the Python parser takes it,
@@ -518,6 +520,7 @@ class Decoder:
                     ref_list=acc["ref_list"],
                     col_motion=acc["col_motion"],
                     parse_threads=self._parse_threads)
+                trace.annotate(**fs.parse_stats)
             self.stats["native_slices"] += len(segs)
             acc["n_parsed"] = n_ctb
         else:

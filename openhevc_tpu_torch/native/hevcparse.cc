@@ -14,6 +14,7 @@
 #include <cstdlib>
 #include <array>
 #include <atomic>
+#include <chrono>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -301,6 +302,11 @@ struct Outputs {
     int32_t cb_cap, lvl_cap, ij_cap, pcm_cap, pcm_arena_cap, pb_cap;
     int32_t n_cb, n_ij, n_pcm, n_pb, lvl_used, pcm_used;
     int32_t error;
+    // how the picture was parsed: substream workers (1 serial), 1 when
+    // a threaded attempt failed and the serial re-parse gave the result,
+    // and the workers' summed wait on the row above (WPP, microseconds)
+    int32_t threads, fallback;
+    int64_t wave_wait_us;
 };
 
 enum { MODE_INTER = 0, MODE_INTRA = 1 };
@@ -476,6 +482,7 @@ struct Parser {
     int pu_cmode[4] = {1, 1, 1, 1};   // per-PU chroma modes (4:4:4 NxN)
     int cu_log2_cb = 3;
     bool err = false;
+    int64_t wait_ns = 0;      // spent in wait_row (threaded WPP)
     // cu_qp_delta state (lc->qp_y / qPy_pred / first_qp_group)
     int qp_y = 0, qPy_pred = 0;
     bool first_qp_group = true;
@@ -637,24 +644,20 @@ struct Parser {
         if (row == 0 || ctbs_w == 1) {
             init_ctx_states(S->init_type);
         } else {
-            while (!S->snapshot_ready[row - 1]
-                        .load(std::memory_order_acquire)) {
-                if (S->any_err.load(std::memory_order_relaxed))
-                    return fail_row(row);
-                std::this_thread::yield();
-            }
+            if (!wait_row([&] {
+                    return S->snapshot_ready[row - 1]
+                        .load(std::memory_order_acquire) != 0; }))
+                return fail_row(row);
             memcpy(ctx, S->row_snapshot[row - 1].data(), NUM_CONTEXTS);
         }
         cu_qp = P.slice_qp;
         for (int x = 0; x < ctbs_w && !err; x++) {
             if (row > 0) {
                 int need = imin(x + 2, ctbs_w);
-                while (S->row_progress[row - 1]
-                           .load(std::memory_order_acquire) < need) {
-                    if (S->any_err.load(std::memory_order_relaxed))
-                        return fail_row(row);
-                    std::this_thread::yield();
-                }
+                if (!wait_row([&] {
+                        return S->row_progress[row - 1]
+                            .load(std::memory_order_acquire) >= need; }))
+                    return fail_row(row);
             }
             int x0 = x * cs, y0 = row * cs;
             if (P.sao_enabled && (P.slice_sao_luma || P.slice_sao_chroma))
@@ -678,6 +681,25 @@ struct Parser {
             err = true;                       // end_of_subset_one_bit
         if (err) return fail_row(row);
         return 0;
+    }
+
+    // Spin until ready() holds; false once another row has failed. The
+    // clock is read only after the first check fails, so a row that
+    // never waits reads none.
+    template <class Ready> bool wait_row(Ready ready) {
+        if (ready()) return true;
+        auto t0 = std::chrono::steady_clock::now();
+        bool ok = true;
+        while (!ready()) {
+            if (S->any_err.load(std::memory_order_relaxed)) {
+                ok = false;
+                break;
+            }
+            std::this_thread::yield();
+        }
+        wait_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+            std::chrono::steady_clock::now() - t0).count();
+        return ok;
     }
 
     int fail_row(int row) {
@@ -2319,6 +2341,9 @@ int hevc_parse_slice(const uint8_t* rbsp, int64_t size,
     out->n_cb = out->n_ij = out->n_pcm = out->n_pb = 0;
     out->lvl_used = out->pcm_used = 0;
     out->error = 0;
+    out->threads = 1;
+    out->fallback = 0;
+    out->wave_wait_us = 0;
 
     Shared S;
     S.init(params, out, padded.data(), size);
@@ -2359,6 +2384,7 @@ int hevc_parse_slice(const uint8_t* rbsp, int64_t size,
                 tile_begin[S.tile_id[S.ts_order[ts]] + 1] = ts + 1;
         }
         std::vector<LocalOut> locals(T);
+        std::vector<int64_t> wait_ns(T, 0);
         auto worker = [&](int tid) {
             locals[tid].init_from(out);
             for (int ss = tid; ss < nss; ss += T) {
@@ -2371,6 +2397,7 @@ int hevc_parse_slice(const uint8_t* rbsp, int64_t size,
                     ? p.decode_wpp_row(ss, bit)
                     : p.decode_tile(tile_begin[ss], tile_begin[ss + 1],
                                     bit);
+                wait_ns[tid] += p.wait_ns;
                 locals[tid].mark_end();
                 if (rc) break;
             }
@@ -2379,6 +2406,10 @@ int hevc_parse_slice(const uint8_t* rbsp, int64_t size,
         for (int t = 1; t < T; t++) threads.emplace_back(worker, t);
         worker(0);
         for (auto& th : threads) th.join();
+        int64_t waited = 0;
+        for (int64_t w : wait_ns) waited += w;
+        out->threads = T;
+        out->wave_wait_us = waited / 1000;
         if (!S.any_err.load() && merge_locals(locals, nss, out))
             return 0;
         // threaded parse failed: reset and fall through to the serial
@@ -2398,6 +2429,7 @@ int hevc_parse_slice(const uint8_t* rbsp, int64_t size,
         p.init_ctx_states(S2.init_type);
         int rc = p.decode();
         if (rc) out->error = 1;
+        out->fallback = 1;
         return rc;
     }
 
@@ -2431,6 +2463,9 @@ int hevc_parse_picture(int n_seg, const uint8_t* const* rbsps,
     out->n_cb = out->n_ij = out->n_pcm = out->n_pb = 0;
     out->lvl_used = out->pcm_used = 0;
     out->error = 0;
+    out->threads = 1;
+    out->fallback = 0;
+    out->wave_wait_us = 0;
     Shared S;
     S.init(&params[0], out, padded[0].data(), sizes[0]);
     S.col_pf = col_pf;
@@ -2475,7 +2510,7 @@ int hevc_parse_picture(int n_seg, const uint8_t* const* rbsps,
     return 0;
 }
 
-int hevc_parse_abi_version() { return 4; }
+int hevc_parse_abi_version() { return 5; }
 
 // ---------------------------------------------------------------------------
 // Frame packing: convert the parse outputs (cb_meta/cb_levels decode-order

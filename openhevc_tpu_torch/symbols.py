@@ -147,6 +147,9 @@ class FrameSymbols:
     # device-upload layouts packed by the native core (hevc_pack_frame):
     # arena8/arena16/esc/caps/meta/n in _frame_fused's exact format
     native_pack: dict | None = None
+    # how the native core parsed the picture (bitstream/native.py):
+    # substreams, threads, fallback, wave_wait_us
+    parse_stats: dict | None = None
 
     def active_scaling(self):
         """Resolved scaling list for dequant, or None when disabled

@@ -24,7 +24,10 @@ profiler's trace holds the ranges.
 
 Span names and where they open: `decode`, `flush` (Decoder,
 ShvcDecoder); `parse` (the parse-ahead worker's job and the synchronous
-parses; attr `route`), `parse_wait` (the wait on the parse-ahead queue),
+parses; attr `route`, and on a native parse `substreams`, `threads`,
+`fallback`, `wave_wait_us`: the entry points handed over, the workers,
+whether the serial re-parse gave the result, the workers' summed wait
+on the WPP row above), `parse_wait` (the wait on the parse-ahead queue),
 `reconstruct` (one picture, or one wave with attr `pictures`); the
 engine's stages (`TorchEngine._stage`); `upsample`, `il_motion` (the
 inter-layer reference); `fetch` (`TorchPlanes.get`, first call);

@@ -150,7 +150,8 @@ def test_reader_of_the_spans_counts_the_kernel_route(monkeypatch):
     read = manifest.reader(ROOT, "edge_params_on_card.batch")
     entry = {m["name"]: m for m in manifest.load(ROOT)["per_layer"]}[
         "edge_params_on_card.batch"]
-    assert entry["moves"] == "fps" and entry["workloads"] == ["ra1080_batch"]
+    assert entry["moves"] == "fps" and entry["workloads"] == [
+        "ra1080_batch", "ra2160_batch"]
     assert entry["source"] == "program_counter"
     held = {"spans": []}
     monkeypatch.setattr(trace, "spans", lambda: list(held["spans"]))
