@@ -47,7 +47,16 @@ out). Phases (each one fails the run with a non-zero exit):
      From here on every `TorchEngine.prepare` of a picture deblocked on
      the card, and every such member a mesh's tile axis filters, must
      launch it once, and every other prepare never (`edge_watch`); its
-     launches are counted with the intra kernels' in phases 4-9;
+     launches are counted with the intra kernels' in phases 4-9. On
+     every picture of that stream and the first of the benchmark's 4K
+     10-bit stream (decoded on the card, the 1080p one md5-exact): the
+     in-loop filters' kernels (csrc/loop_filters.cu) == their plain
+     version `apply_filters_ref` on the card, call for call, timed
+     beside it and their byte bounds on one picture of each. From here
+     on every picture filtered on the card makes two launches for
+     deblocking and one for SAO, and every band of a mesh's tile axis as
+     many, and every other picture none (`filter_watch`); phase 10
+     prints them by route;
      Print each frame's level-width histogram; time the kernels;
   4. decode every frame of each stream through `Decoder(device="cuda")`
      (`ShvcDecoder(device="cuda")` for shvc_2layer) with every launch
@@ -216,8 +225,14 @@ SHVC_MC_STREAM = "shvc_x1_5_1080p_ld"   # its second EL AU: pair == tap
 SHVC_CLI = ("col_il_mv", "shvc_x1_5_1080p_ld")  # through -l 1 and -l 0
 EDGE_STREAM = os.path.join(ROOT, "benchmark", "streams",
                            "hevc_ra_1080p_qp32.265")    # phase 3
+FILTER_STREAMS = (EDGE_STREAM,         # phase 3: every filtered picture
+                  os.path.join(ROOT, "benchmark", "streams",
+                               "hevc_main10_ra_2160p",
+                               "hevc_ra_2160p10_qp32.265"))  # the first
 POC_ORDER = {}      # stream -> POCs of its output order (phase 4)
-EDGE_NEED = [0]     # pictures deblocked on the card since `zero` (phases 4-9)
+NEED = {"edge_params": 0,   # due launches since `zero`: one a picture
+        "loop_filters": 0}  # deblocked on the card; `filter_launches` a
+#                             picture (or band) filtered there (phases 4-9)
 FRAME_BYTES = {}    # stream -> bytes of one cropped output frame (phase 4)
 PHASE4_FPS = {}     # stream -> decode fps of its phase-4 decode
 
@@ -234,21 +249,26 @@ def patched(obj, name, value):
 
 
 def zero(counters):
-    """Every launch counter of `counters` and EDGE_NEED to 0, before a
-    decode whose launches a phase counts."""
+    """Every launch counter of `counters` and NEED to 0, before a decode
+    whose launches a phase counts."""
     for f in counters.values():
         f.launches = 0
-    EDGE_NEED[0] = 0
+    for n in NEED:
+        NEED[n] = 0
+
+
+def due(counters):
+    """The due launches (NEED) of the watched kernels that `counters`
+    holds: the edge-parameter kernel's (`edge_watch`) and the in-loop
+    filters' (`filter_watch`)."""
+    return {n: NEED[n] for n in NEED if n in counters}
 
 
 def read(counters):
     """At one moment: the launches of each counter of `counters` since
-    `zero`, and, where it holds the edge-parameter kernel, that kernel's
-    due launches, one a picture deblocked on the card (EDGE_NEED), as
-    {"edge_params": n} (else {})."""
-    launches = {n: f.launches for n, f in counters.items()}
-    due = {"edge_params": EDGE_NEED[0]} if "edge_params" in counters else {}
-    return launches, due
+    `zero`, and the due launches of the watched kernels it holds
+    (`due`)."""
+    return {n: f.launches for n, f in counters.items()}, due(counters)
 
 
 @contextlib.contextmanager
@@ -257,7 +277,7 @@ def edge_watch():
     (not a tile shard) that is deblocked and filtered on the device (not
     the host-filter route), and every such member that a mesh's tile
     axis combines and filters, makes ONE `edge_params` launch, and every
-    other prepare none; each such picture adds 1 to EDGE_NEED. A picture
+    other prepare none; each such picture adds 1 to NEED. A picture
     that breaks the rule raises."""
     from openhevc_tpu_torch.models.pipeline import TorchEngine
     from openhevc_tpu_torch.ops.filters import edge_params
@@ -271,7 +291,7 @@ def edge_watch():
             raise AssertionError(f"{where} of POC {fs.poc} (deblocking "
                                  f"{'off' if fs.deblock_disabled else 'on'})"
                                  f": {got} edge_params launches, not {need}")
-        EDGE_NEED[0] += need
+        NEED["edge_params"] += need
 
     def watched_prepare(self, fs, ref_planes=None, shard=None):
         before = edge_params.launches
@@ -288,6 +308,59 @@ def edge_watch():
         return out
 
     with patched(TorchEngine, "prepare", watched_prepare), \
+            patched(MeshFrameDecoder, "_combine_and_filter",
+                    watched_combine):
+        yield
+
+
+def filter_launches(fs):
+    """The launches of csrc/loop_filters.cu that one filtering of the
+    picture makes: two for deblocking (vertical, horizontal edges), one
+    for SAO."""
+    sps = fs.sps
+    return 2 * int(not fs.deblock_disabled) + \
+        int(bool(sps.sao_enabled and (fs.sao_luma or fs.sao_chroma)))
+
+
+@contextlib.contextmanager
+def filter_watch():
+    """Inside the block, every `TorchEngine.finish` that filters its
+    picture on the device makes exactly `filter_launches` launches of the
+    in-loop filters' kernels (at most 3), every other finish none, and
+    every member a mesh's tile axis filters makes that many for each band
+    (`parallel/mesh.py` `band_filters`); each such picture adds its
+    launches to NEED. A picture that breaks the rule raises."""
+    from openhevc_tpu_torch.models.pipeline import TorchEngine
+    from openhevc_tpu_torch.ops.filters import apply_filters_device as f
+    from openhevc_tpu_torch.parallel.mesh import MeshFrameDecoder
+    finish = TorchEngine.finish
+    combine = MeshFrameDecoder._combine_and_filter
+
+    def check(fs, before, calls, where):
+        need = calls * filter_launches(fs)
+        got = f.launches - before
+        if got != need:
+            raise AssertionError(f"{where} of POC {fs.poc}: {got} launches "
+                                 f"of the in-loop filters, not {need}")
+        NEED["loop_filters"] += need
+
+    def watched_finish(self, fs, k):
+        before = f.launches
+        out = finish(self, fs, k)
+        check(fs, before, int(k["filters"] is not None and
+                              not k["host_filters"]), "finish")
+        return out
+
+    def watched_combine(self, fs, gmap, ks, devices):
+        before = f.launches
+        out = combine(self, fs, gmap, ks, devices)
+        rb = -(-fs.sps.ctbs_h // len(devices))
+        bands = sum(g * rb < fs.sps.ctbs_h for g in range(len(devices)))
+        check(fs, before, bands * out.device_filtered,
+              "the tile axis' filters")
+        return out
+
+    with patched(TorchEngine, "finish", watched_finish), \
             patched(MeshFrameDecoder, "_combine_and_filter",
                     watched_combine):
         yield
@@ -769,6 +842,101 @@ def check_edge_params(reps=REPS):
             "segments": sum(a.numel() for a in got) // 2}
 
 
+def check_loop_filters(reps=REPS):
+    """Phase 3 for the in-loop filters' kernels (csrc/loop_filters.cu):
+    every picture of the benchmark's 1080p stream and the first of its
+    4K 10-bit stream decoded on the card, each `apply_filters_device`
+    call held to `apply_filters_ref` on the card on the same arguments
+    and to `filter_launches`, the 1080p decode md5-exact; then, on the
+    first inter picture of the 1080p stream and the 4K picture, the
+    kernels timed with CUDA events around one call (mean of reps; the
+    wrapper's host time between the events included; the launch counter
+    read over those calls) and by the profiler's device time, the plain
+    version with CUDA events, beside the byte bound: the function's least
+    (the planes read once and written once, the control arrays read
+    once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from openhevc_tpu_torch.decoder import Decoder
+    from openhevc_tpu_torch.models import pipeline
+    from openhevc_tpu_torch.ops.filters import (apply_filters_device,
+                                                apply_filters_ref)
+    kept, err, calls = {}, 0, []
+    path = keep = None
+    real = pipeline.apply_filters_device
+
+    def spy(*args, **kw):
+        nonlocal err
+        before = apply_filters_device.launches
+        got = real(*args, **kw)
+        n = apply_filters_device.launches - before
+        if n != 2 * kw["do_deblock"] + kw["do_sao"]:
+            raise AssertionError(f"{n} launches of the in-loop filters")
+        plain = apply_filters_ref(*args, **dict(kw, stage=contextlib
+                                                .nullcontext))
+        err = max(err, _max_err(got, plain))
+        calls.append(n)
+        if len(calls) == keep:
+            kept[path] = ([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args],
+                          dict(kw, stage=contextlib.nullcontext))
+        return got
+
+    pictures = {}
+    for path, cut, keep in ((FILTER_STREAMS[0], None, 2),
+                            (FILTER_STREAMS[1], 1, 1)):
+        with open(path, "rb") as f:
+            data = f.read()
+        if cut:
+            data = first_frames(data, cut)
+        calls.clear()
+        with patched(pipeline, "apply_filters_device", spy):
+            dec = Decoder(device="cuda")
+            pics = dec.decode(data) + dec.flush()
+        if not cut:
+            with open(path + ".md5") as f:
+                if hash_pics(pics) != f.read().split():
+                    raise AssertionError(f"{path}: not md5-exact with the "
+                                         f"in-loop filters' kernels")
+        if len(calls) != len(pics) or path not in kept:
+            raise AssertionError(f"{path}: {len(calls)} filtered of "
+                                 f"{len(pics)} pictures")
+        pictures[os.path.basename(path)] = list(calls)
+    if err != 0:
+        raise AssertionError(f"the in-loop filters' kernels differ from "
+                             f"the plain version by up to {err}")
+    sync()
+    rows = {}
+    for path, (args, kw) in kept.items():
+        y, cb, cr = args[:3]
+        before = apply_filters_device.launches
+        ms = sum(_elapsed_ms(lambda: apply_filters_device(*args, **kw))
+                 for _ in range(reps)) / reps
+        launches = (apply_filters_device.launches - before) / reps
+        plain_ms = sum(_elapsed_ms(lambda: apply_filters_ref(*args, **kw))
+                       for _ in range(reps)) / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                apply_filters_device(*args, **kw)
+            sync()
+        dev_us = {k: sum(getattr(e, "device_time_total", None) or
+                         e.cuda_time_total for e in prof.key_averages()
+                         if f"{k}_kernel" in e.key) / reps
+                  for k in ("deblock", "sao")}
+        plane = 4 * (y.numel() + cb.numel() + cr.numel())
+        control = sum(a.numel() * a.element_size() for a in args[3:25])
+        rows[os.path.basename(path)] = {
+            "ms": ms, "plain_ms": plain_ms, "device_us": dev_us,
+            "launches": launches, "size": f"{y.shape[1]}x{y.shape[0]}",
+            "bound_ms": (2 * plane + control) / HBM_BYTES_PER_S * 1e3}
+    return {"name": "loop_filters", "route": "cuda",
+            "source": "openhevc_tpu_torch/csrc/loop_filters.cu",
+            "replaces": "none: jnp ops (openhevc_tpu/ops/filters_jax.py "
+                        "apply_filters_device)",
+            "max_abs_err": err, "pictures": pictures, "timed": rows,
+            "bound_by": "bytes (launch latency binds)", "library_ms": None}
+
+
 def stage_bounds(sps, pairs):
     """Byte bounds (ms at HBM_BYTES_PER_S) of the torch-op stages of one
     picture: each stage's inputs read once and outputs written once.
@@ -798,9 +966,11 @@ def main_path(name, counters):
     """Phase 4 on one stream: decode it with every launch counter set to
     0 just before; require its kernel exactly once per picture with an
     intra job, the other kernel and the serial-order entry never, the
-    edge-parameter kernel once per picture deblocked on the card, and
-    every frame's md5 equal to the sidecar. Returns (number of frames,
-    launch counts, decoder)."""
+    edge-parameter kernel once per picture deblocked on the card, the
+    in-loop filters' kernels two launches for deblocking and one for SAO
+    per picture filtered on the card (`filter_launches`), and every
+    frame's md5 equal to the sidecar. Returns (number of frames, launch
+    counts, decoder)."""
     data, want = load_stream(name)
     two = name in TWO_LAYERS
     decode_all(first_frames(data, 4 if two else 2), fetch=True,
@@ -817,17 +987,18 @@ def main_path(name, counters):
     print(f"phase4 {name} md5 {n_ok}/{len(want)} frames equal the sidecar "
           f"({len(pics)} decoded, {with_jobs} pictures with intra jobs"
           f"{' in both layers' if two else ''}, "
-          f"{need.get('edge_params')} deblocked on the card; launches "
-          f"{launches})", flush=True)
+          f"{need.get('edge_params')} deblocked on the card, "
+          f"{need.get('loop_filters')} launches of the in-loop filters "
+          f"due; launches {launches})", flush=True)
     if len(pics) != len(want) or n_ok != len(want):
         raise AssertionError(f"{name}: decoded frames differ from the "
                              f"reference md5 sidecar")
     for n, c in launches.items():
-        if n == "edge_params":
+        if n in NEED:
             if c != need[n]:
-                raise AssertionError(f"{name}: edge_params launched {c} "
-                                     f"times for {need[n]} pictures "
-                                     f"deblocked on the card")
+                raise AssertionError(f"{name}: {n} launched {c} times, "
+                                     f"{need[n]} due for the pictures "
+                                     f"filtered on the card")
         elif n == KERNEL_OF[name] and (c != with_jobs or c == 0):
             raise AssertionError(f"{name}: kernel {n} launched {c} times "
                                  f"for {with_jobs} pictures with jobs")
@@ -893,8 +1064,9 @@ def route_decode(name, data, counters, kernel, label, **kw):
     stream's POCs are unique, else, with an IDR a frame, in output
     order: a cut of such a stream is a prefix of its output), and
     `kernel` to have launched once per picture with an intra job, the
-    edge-parameter kernel once per picture deblocked on the card and no
-    other kernel at all. kw goes to decode_all. Returns (pictures,
+    edge-parameter kernel once per picture deblocked on the card, the
+    in-loop filters' kernels as `filter_launches` says, and no other
+    kernel at all. kw goes to decode_all. Returns (pictures,
     seconds, decoder, launches)."""
     order, want = POC_ORDER[name], load_stream(name)[1]
     zero(counters)
@@ -912,7 +1084,7 @@ def route_decode(name, data, counters, kernel, label, **kw):
     if not pics or n_ok != len(pics):
         raise AssertionError(f"{label}: {name} differs from the md5 sidecar")
     need = {n: with_jobs if n == kernel else 0
-            for n in counters if n != "edge_params"} | edges
+            for n in counters if n not in NEED} | edges
     if launches != need or with_jobs == 0:
         raise AssertionError(f"{label}: {name} launched {launches}, not "
                              f"{need}")
@@ -927,7 +1099,7 @@ def check_no_band_plan(counters, banded_4k_ms, reps=REPS):
     kernel is timed on 4K frame 0 in this layout (meta in decode order)
     beside the banded kernel on the same frame."""
     from openhevc_tpu_torch.models import pipeline
-    out = {"launches": {}, "edge_launches": {}}
+    out = {"launches": {}, "edge_launches": {}, "filter_launches": {}}
     with patched(pipeline, "band_plan", lambda *a: None):
         for name, k in (("main10_4k", None),
                         ("ra_main10_4k", RA_4K_PICTURES)):
@@ -941,6 +1113,7 @@ def check_no_band_plan(counters, banded_4k_ms, reps=REPS):
                                      f"{len(pics)} frames")
             out["launches"][name] = launches["intra_fused"]
             out["edge_launches"][name] = launches["edge_params"]
+            out["filter_launches"][name] = launches["loop_filters"]
             out[f"{name}_decode_fps"] = len(pics) / dt
         fs = parse_only(first_frames(load_stream("main10_4k")[0], 1))[0]
         k = pipeline.TorchEngine("cuda").prepare(fs)
@@ -1007,7 +1180,8 @@ def check_python_parser(counters):
         out[name] = {"pictures": n, "parse_ms": parse_ms,
                      "decode_ms_per_picture": dt * 1e3 / n,
                      "launches": launches[kernel],
-                     "edge_launches": launches["edge_params"]}
+                     "edge_launches": launches["edge_params"],
+                     "filter_launches": launches["loop_filters"]}
     return out
 
 
@@ -1032,7 +1206,8 @@ def check_host_filters(counters):
             "stage_ms_per_picture": {k: v / len(pics)
                                      for k, v in st.items()},
             "launches": launches["intra_fused_banded"],
-            "edge_launches": launches["edge_params"]}
+            "edge_launches": launches["edge_params"],
+            "filter_launches": launches["loop_filters"]}
 
 
 def check_cli():
@@ -1129,7 +1304,8 @@ def wave_decode(name, mesh, counters):
     equal to the prediction from the parse (frame axis: one a wave
     member with intra jobs; tile axis: one a tile shard whose group
     holds jobs), of the edge-parameter kernel one a picture deblocked on
-    the card, of the other kernels 0. Then one decode on one device
+    the card, of the in-loop filters' kernels as `filter_launches` says
+    (per band on the tile axis), of the other kernels 0. Then one decode on one device
     and one more with the mesh, in turns with the first (host speed
     drifts within a call), each md5-checked. Returns a dict of what was
     seen (waves, launches, fps with the mesh and on one device)."""
@@ -1195,7 +1371,7 @@ def wave_decode(name, mesh, counters):
         raise AssertionError(f"waves, {axis}: {name} differs from the md5 "
                              f"sidecar")
     need = {n: predicted if n == KERNEL_OF[name] else 0
-            for n in counters if n != "edge_params"} | edges
+            for n in counters if n not in NEED} | edges
     if launches != need or predicted == 0:
         raise AssertionError(f"waves, {axis}: {name} launched {launches}, "
                              f"predicted {need}")
@@ -1403,14 +1579,15 @@ def _keeper(entry):
     return keep
 
 
-def check_feature_routes(entry, routes, stats, launches=None, edges=0):
+def check_feature_routes(entry, routes, stats, launches=None, owed=None):
     """Parts 1-2 of phase 8 beside the md5s: every picture took the route
     its manifest entry predicts (parse, filters, plan, jobs, inter and
     PCM blocks, in decode order), the Python parser took the predicted
     slices, and, with `launches` (the counters of the decode), each
     intra kernel launched once a picture of its plan with jobs and,
-    where `launches` counts it, the edge-parameter kernel `edges` times
-    (once a picture deblocked on the card)."""
+    where `launches` counts them, the edge-parameter kernel and the
+    in-loop filters' kernels as often as `owed` (the decode's NEED)
+    says."""
     name = entry["name"]
     if routes != entry["routes"]:
         bad = [(g, w) for g, w in zip(routes, entry["routes"]) if g != w]
@@ -1429,8 +1606,7 @@ def check_feature_routes(entry, routes, stats, launches=None, edges=0):
             "intra_fused_banded": sum(r["jobs"] > 0 and r["plan"] == "banded"
                                       for r in routes),
             "intra_fused_serial": 0}
-    if "edge_params" in launches:
-        need["edge_params"] = edges
+    need.update({n: (owed or {}).get(n, 0) for n in NEED if n in launches})
     if launches != need:
         raise AssertionError(f"{name}: launches {launches}, predicted "
                              f"{need}")
@@ -1528,8 +1704,7 @@ def decode_feature_stream(entry, counters, banded=False, keep=None,
         pics = dec.decode(data) + dec.flush()
         sync(device)
         secs = time.perf_counter() - t0
-    launches = {n: f.launches for n, f in counters.items()}
-    edges = EDGE_NEED[0]
+    launches, owed = read(counters)
     got = hash_pics(pics)
     n_ok = sum(g == w for g, w in zip(got, want))
     print(f"phase8 {entry['name']} (tier {entry['tier']}, "
@@ -1541,7 +1716,7 @@ def decode_feature_stream(entry, counters, banded=False, keep=None,
                              f"pictures differ from the md5 sidecar "
                              f"({n_ok}/{len(want)}, {len(got)} decoded)")
     check_feature_routes(entry, dec.routes, dec.stats, launches or None,
-                         edges)
+                         owed)
     return dec, pics, {"frames": len(pics), "md5_ok": n_ok,
                        "seconds": secs, "launches": launches}
 
@@ -1662,7 +1837,7 @@ def shvc_layer_class(counters, keep, banded=False):
             super().__init__(*a, **kw)
             self.routes, self.kept, self.col = [], [], {}
             self.launches = dict.fromkeys(counters, 0)
-            self.edges = 0          # its pictures deblocked on the card
+            self.owed = dict.fromkeys(NEED, 0)   # its due launches
 
         def _engine(self):
             if self._torch_engine is None:
@@ -1679,7 +1854,7 @@ def shvc_layer_class(counters, keep, banded=False):
             if keep(self.layer, fs):
                 self.kept.append((fs, dict(refs)))
             before = {n: f.launches for n, f in counters.items()}
-            edges = EDGE_NEED[0]
+            owed = dict(NEED)
             with contextlib.ExitStack() as st:
                 if banded:
                     st.enter_context(forced_banded(
@@ -1689,7 +1864,8 @@ def shvc_layer_class(counters, keep, banded=False):
             self.routes[-1]["col_il"] = self.col.pop(fs.poc, False)
             for n, f in counters.items():
                 self.launches[n] += f.launches - before[n]
-            self.edges += EDGE_NEED[0] - edges
+            for n in NEED:
+                self.owed[n] += NEED[n] - owed[n]
             return out
 
     return LayerDecoder
@@ -1758,7 +1934,7 @@ def decode_shvc(entry, counters, two_layers=True, banded=False, keep=None,
             dict(entry, name=f"{entry['name']} {lay} ({what}, {plan} plan)",
                  routes=routes,
                  python_slices=entry["python_slices"][lay]),
-            d.routes, d.stats, d.launches or None, d.edges)
+            d.routes, d.stats, d.launches or None, d.owed)
     by_layer = {lay: d.launches for lay, d in decs.items()}
     if counters and total != {n: sum(v[n] for v in by_layer.values())
                               for n in counters}:
@@ -1954,11 +2130,13 @@ def run_shvc_matrix(counters, device="cuda"):
 def run():
     """Phases 3-10 on the card; returns the kernel records."""
     from openhevc_tpu_torch.ops import intra_fused as ifm
-    from openhevc_tpu_torch.ops.filters import edge_params
+    from openhevc_tpu_torch.ops.filters import (apply_filters_device,
+                                                edge_params)
     counters = {"intra_fused": ifm.intra_fused,
                 "intra_fused_banded": ifm.intra_fused_banded,
                 "intra_fused_serial": ifm.intra_fused_serial,
-                "edge_params": edge_params}
+                "edge_params": edge_params,
+                "loop_filters": apply_filters_device}
 
     # ---- phase 3: each kernel vs its plain version -----------------------
     fs = parse_only(first_frames(load_stream("i_main_832x480")[0], 1))[0]
@@ -2004,6 +2182,12 @@ def run():
           f"{edge['poc']} of {os.path.basename(EDGE_STREAM)} "
           f"({edge['segments']} edge segments): max_abs_err "
           f"{edge['max_abs_err']}", flush=True)
+    lf = check_loop_filters()
+    counts = {k: len(v) for k, v in lf["pictures"].items()}
+    each = sorted({n for v in lf["pictures"].values() for n in v})
+    print(f"phase3 loop_filters == apply_filters_ref on every filtered "
+          f"picture ({json.dumps(counts)} pictures, launches a picture "
+          f"{each}): max_abs_err {lf['max_abs_err']}", flush=True)
     ups = check_shvc_2layer_upsample()
     print(f"phase3 upsample {ups['bl']} -> {ups['el']} == per-sample "
           f"evaluation of the tap plan: max_abs_err {ups['max_abs_err']}",
@@ -2014,10 +2198,11 @@ def run():
     runs = {name: main_path(name, counters)
             for name, _kind, _frames in CONFIGS}
     recs["edge_params"] = edge
+    recs["loop_filters"] = lf
     for kernel, r in recs.items():
         r["launches_by_stream"] = {
             name: launches[kernel] for name, (_, launches, _) in runs.items()
-            if kernel in (KERNEL_OF[name], "edge_params")}
+            if kernel == KERNEL_OF[name] or kernel in NEED}
         r["launches"] = sum(r["launches_by_stream"].values())
 
     # ---- phase 5: the routes off the main path ---------------------------
@@ -2040,6 +2225,11 @@ def run():
         "no_band_plan": sum(nbp["edge_launches"].values()),
         "python_parser": sum(row["edge_launches"] for row in py.values()),
         "host_filters": hf["edge_launches"]}
+    lf["launches_by_route"] = {
+        "main_path": lf["launches"],
+        "no_band_plan": sum(nbp["filter_launches"].values()),
+        "python_parser": sum(row["filter_launches"] for row in py.values()),
+        "host_filters": hf["filter_launches"]}
     recs["intra_fused"]["main10_4k_frame0_whole_layout"] = {
         k: nbp[k] for k in ("ms", "bound_ms", "jobs")}
 
@@ -2057,7 +2247,7 @@ def run():
 
     # ---- phase 7: the bench script -----------------------------------------
     check_bench({n: c for n, c in runs["i_main_832x480"][1].items()
-                 if n != "edge_params"})
+                 if n not in NEED})
 
     # ---- phase 8: the feature matrix ---------------------------------------
     fm = run_feature_matrix(counters)
@@ -2154,6 +2344,16 @@ def run():
     for r in recs.values():
         print(f"{r['name']}_launches_by_route "
               f"{json.dumps(r['launches_by_route'])}", flush=True)
+    for name, row in lf["timed"].items():
+        print(f"loop_filters_kernel_ms {row['ms']} ({name}, "
+              f"{row['size']}, {row['launches']} launches a call between "
+              f"CUDA events, mean of {REPS}; device time "
+              f"{row['device_us']} us; plain {row['plain_ms']} ms; bound "
+              f"{row['bound_ms']} ms)")
+    print(f"loop_filters_launches {lf['launches']} "
+          f"{json.dumps(lf['launches_by_stream'])} (phase 4, two for "
+          f"deblocking and one for SAO a picture filtered on the card)",
+          flush=True)
     print(f"edge_params_kernel_ms {edge['ms']} (POC {edge['poc']} of "
           f"{os.path.basename(EDGE_STREAM)}, one launch between CUDA "
           f"events, mean of {REPS}; device time {edge['device_us']} us; "
@@ -2193,7 +2393,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    with edge_watch():
+    with edge_watch(), filter_watch():
         kernels = run()
     print(json.dumps({"kernels": kernels}))
     print(smi)

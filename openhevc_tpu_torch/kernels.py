@@ -15,7 +15,8 @@ from .buildutil import BUILD_DIR, PKG_DIR, build_once
 
 SOURCES = {"intra_fused": "intra_fused.cu",
            "intra_fused_banded": "intra_fused_banded.cu",
-           "edge_params": "edge_params.cu"}
+           "edge_params": "edge_params.cu",
+           "loop_filters": "loop_filters.cu"}
 # the headers the intra sources include
 HEADERS = ["intra_job.cuh", "intra_sched.cuh"]
 INCLUDES = {"intra_fused": HEADERS, "intra_fused_banded": HEADERS}

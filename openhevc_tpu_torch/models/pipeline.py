@@ -31,7 +31,8 @@ Counterpart of the JAX package's models/pipeline.py main path
      nothing. Everything runs on one stream, in this order: an intra TU
      beside inter samples reads them from the finished prefill;
   6. whole-frame deblocking + SAO where the picture wants them
-     (ops/filters.py::apply_filters_device);
+     (ops/filters.py::apply_filters_device: on a card at most three
+     launches of csrc/loop_filters.cu);
   7. crop + downcast into one flat uint8 (uint16 above 8 bits) tensor
      that stays on the device as the DPB entry (`TorchPlanes` fetches it
      to the host lazily); later pictures predict from it there.
@@ -984,13 +985,22 @@ class TorchEngine:
             with self._stage("crop_pack"):
                 flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, bd)
         else:
+            # the `deblock` and `sao` spans say who filtered: kernel 1 the
+            # kernels of csrc/loop_filters.cu (a card), 0 the plain version
+            kernel = int(k["luma"].device.type == "cuda")
+
+            @contextlib.contextmanager
+            def stage(name):
+                with self._stage(name):
+                    trace.annotate(kernel=kernel)
+                    yield
+
             y, cb, cr = apply_filters_device(
                 k["luma"][OY:OY + H, OX:OX + W],
                 k["chroma"][0, OY:OY + Hc, OX:OX + Wc],
                 k["chroma"][1, OY:OY + Hc, OX:OX + Wc], *f["fargs"],
                 bd=bd, bdc=bd, cs=f["cs"], do_deblock=f["do_deblock"],
-                do_sao=f["do_sao"], hs=k["hs"], vs=k["vs"],
-                stage=self._stage)
+                do_sao=f["do_sao"], hs=k["hs"], vs=k["vs"], stage=stage)
             with self._stage("crop_pack"):
                 flat = pack_planes(y, cb, cr, bd)
         return TorchPlanes(flat, H, W, Hc, Wc, device_filtered=f is not None)

@@ -1,10 +1,12 @@
-"""In-loop filters on the device: whole-frame deblocking + SAO as dense
-stencils (`roll` / `reshape` / `where`) in torch.
+"""In-loop filters on the device: whole-frame deblocking + SAO.
 
-Counterpart of the JAX package's ops/filters_jax.py (plain XLA there,
-plain torch ops here: no hand kernel, see PERF.md for their times;
-scalar truth in the JAX package: ops/deblock_np.py, ops/sao_np.py,
-ops/filters_sched.py).
+Counterpart of the JAX package's ops/filters_jax.py (plain XLA there).
+On a card, `apply_filters_device` is three hand-written kernels
+(csrc/loop_filters.cu: vertical edges, horizontal edges, SAO, one launch
+each); on the CPU it runs the plain PyTorch version `apply_filters_ref`,
+dense stencils (`roll` / `reshape` / `where`) over the whole frame,
+which the kernels equal sample for sample (scalar truth in the JAX
+package: ops/deblock_np.py, ops/sao_np.py, ops/filters_sched.py).
 
 Design: the host derives the per-edge control data that depends on the
 picture's structure (no-filter flags, the CTB-16 chroma halo, per-CTB
@@ -15,10 +17,11 @@ made on the device from the parser's per-4x4 grids (`edge_params`: the
 kernel csrc/edge_params.cu on a card, its plain PyTorch version
 `edge_params_ref` on the CPU), on the engine's route and on a mesh's
 tile axis alike; `prep_filters` makes them with numpy only when asked
-(`edges=True`), as the yardstick of both. Vertical-edge windows
-tile a row exactly (edges are 8 apart, each window spans +-4), so a pass
-is one reshape + elementwise math; the horizontal passes run on the
-transposed plane.
+(`edges=True`), as the yardstick of both. In the plain version,
+vertical-edge windows tile a row exactly (edges are 8 apart, each window
+spans +-4), so a pass is one reshape + elementwise math; the horizontal
+passes run on the transposed plane. The kernels keep that tiling: one
+thread a window.
 
 The whole-frame formulation reproduces the reference decoder's staggered
 CTB schedule, including PCM / transquant-bypass no-filter blocks (write
@@ -663,15 +666,28 @@ def edge_params(pm, cbf, bv, bh, qp, qlut, *motion, H, W, hs, vs, bd, bdc,
 edge_params.launches = 0
 
 
-def _lib():
-    """The kernel library, built at first use, its argument types set."""
+def _signatures():
+    """{library: {C function: argument types}} of the kernels in this
+    module."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    PP, PI = ctypes.POINTER(P), ctypes.POINTER(I)
+    return {"edge_params": {
+                "edge_params_launch": [P] * 8 + [I, P, P] + [I] * 8 + [P]},
+            "loop_filters": {
+                "deblock_launch": [I, PP, PP, PI, PP, I, I, P],
+                "sao_launch": [PP, PP, PP, PI, PP, PI, PP, P, I, I, I, P]}}
+
+
+def _lib(name="edge_params"):
+    """Kernel library `name`, built at first use, its argument types
+    set."""
     from .. import kernels
-    lib = kernels.load("edge_params")
-    fn = lib.edge_params_launch
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 8 + [I, P, P] + [I] * 8 + [P]
-        fn.restype = I
+    lib = kernels.load(name)
+    for fn, types in _signatures()[name].items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = types
+            f.restype = ctypes.c_int
     return lib
 
 
@@ -888,23 +904,25 @@ def _sao_component(pl, typ, second, offs, cs, bd: int,
                        torch.where(typ_px == 2, out_edge, pl))
 
 
-def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
-                         tc_cv1, tc_ch1, tc_cv2, tc_ch2, sao,
-                         nop_v, noq_v, nop_h, noq_h,
-                         nop_cv, noq_cv, nop_ch, noq_ch, nf4, nf4c,
-                         st_b0, st_b2, st_a3, ybounds=None,
-                         *, bd, bdc, cs, do_deblock, do_sao, hs=1, vs=1,
-                         stage=contextlib.nullcontext):
-    """Whole-frame deblock (vertical then horizontal, luma + chroma)
-    followed by SAO. y [H, W], cb/cr [Hc, Wc] int32 (views are fine:
-    nothing is written in place); returns new (y, cb, cr). nop*/noq*/nf4:
-    PCM/tqb no-filter suppression + restore ((1,1) placeholders when
-    absent); st_*: 16x16-CTB SAO chroma halo positions. hs/vs: chroma
-    subsampling shifts (1,1=4:2:0; 1,0=4:2:2; 0,0=4:4:4). `stage(name)`
-    is a context manager entered around "deblock" and "sao" (the
-    engine's stage timers). ybounds: ((ytop, ybot), (cytop, cybot)), the
-    picture's true luma and chroma rows when y / cb / cr are a halo band
-    of a larger frame (parallel/mesh.py `band_filters`), else None."""
+def apply_filters_ref(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
+                      tc_cv1, tc_ch1, tc_cv2, tc_ch2, sao,
+                      nop_v, noq_v, nop_h, noq_h,
+                      nop_cv, noq_cv, nop_ch, noq_ch, nf4, nf4c,
+                      st_b0, st_b2, st_a3, ybounds=None,
+                      *, bd, bdc, cs, do_deblock, do_sao, hs=1, vs=1,
+                      stage=contextlib.nullcontext):
+    """Plain PyTorch version of `apply_filters_device` (whole-plane torch
+    ops, on any device): whole-frame deblock (vertical then horizontal,
+    luma + chroma) followed by SAO. y [H, W], cb/cr [Hc, Wc] int32 (views
+    are fine: nothing is written in place); returns new (y, cb, cr).
+    nop*/noq*/nf4: PCM/tqb no-filter suppression + restore ((1,1)
+    placeholders when absent); st_*: 16x16-CTB SAO chroma halo positions.
+    hs/vs: chroma subsampling shifts (1,1=4:2:0; 1,0=4:2:2; 0,0=4:4:4).
+    `stage(name)` is a context manager entered around "deblock" and "sao"
+    (the engine's stage timers). ybounds: ((ytop, ybot), (cytop, cybot)),
+    the picture's true luma and chroma rows when y / cb / cr are a halo
+    band of a larger frame (parallel/mesh.py `band_filters`), else
+    None."""
     vst_cb = vst_cr = None
     if do_deblock:
         with stage("deblock"):
@@ -947,3 +965,187 @@ def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
                 cb = torch.where(mc, pre_cb, cb)
                 cr = torch.where(mc, pre_cr, cr)
     return y, cb, cr
+
+
+def _check_filters(planes, fargs, ybounds, bd, bdc, cs, do_deblock, do_sao,
+                   hs, vs):
+    """Raise on what the kernels of csrc/loop_filters.cu do not take."""
+    dev = planes[0].device
+    for name, t in zip(("y", "cb", "cr"), planes):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: dtype {t.dtype}, want torch.int32")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, y on {dev}")
+        if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name} {tuple(t.shape)} with strides "
+                             f"{t.stride()}: want 2-D with contiguous rows")
+    (H, W), (Hc, Wc) = planes[0].shape, planes[1].shape
+    if hs not in (0, 1) or vs not in (0, 1) or not 8 <= bd <= 16 or \
+            not 8 <= bdc <= 16 or cs not in (16, 32, 64):
+        raise ValueError(f"hs {hs}, vs {vs}, bit depths {bd} / {bdc}, "
+                         f"CTB {cs}")
+    if tuple(planes[2].shape) != (Hc, Wc) or (Hc, Wc) != (H >> vs, W >> hs) \
+            or H % 8 or W % 8 or Hc % 4 or Wc % 4 or not H:
+        raise ValueError(f"planes {W}x{H}, {Wc}x{Hc}, "
+                         f"{tuple(planes[2].shape)[::-1]} with hs {hs}, "
+                         f"vs {vs}")
+    shapes = dict(zip(EDGE_KEYS, edge_shapes(H, W, hs, vs)))
+    for k, t in zip(FARG_KEYS, fargs):
+        if t.dtype != torch.int16:
+            raise TypeError(f"{k}: dtype {t.dtype}, want torch.int16")
+        if t.device != dev:
+            raise ValueError(f"{k} on {t.device}, y on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{k} is not contiguous")
+        if do_deblock and k in EDGE_KEYS and tuple(t.shape) != shapes[k]:
+            raise ValueError(f"{k} {tuple(t.shape)}, want {shapes[k]}")
+    a = dict(zip(FARG_KEYS, fargs))
+    if do_deblock:
+        # a no-filter array is a (1, 1) placeholder or its tc array's shape
+        for k, tc in (("nop_v", "tc_v"), ("noq_v", "tc_v"),
+                      ("nop_h", "tc_h"), ("noq_h", "tc_h"),
+                      ("nop_cv", "tc_cv1"), ("noq_cv", "tc_cv1"),
+                      ("nop_ch", "tc_ch1"), ("noq_ch", "tc_ch1")):
+            if tuple(a[k].shape) not in ((1, 1), shapes[tc]):
+                raise ValueError(f"{k} {tuple(a[k].shape)}, want (1, 1) "
+                                 f"or {shapes[tc]}")
+    if do_sao:
+        s = tuple(a["sao"].shape)
+        if len(s) != 4 or s[2:] != (3, 6) or s[0] * cs < H or s[1] * cs < W:
+            raise ValueError(f"sao {s} for a {W}x{H} picture of CTB {cs}")
+        if tuple(a["nf4"].shape) != (1, 1):
+            # a flag a 4x4 luma block: (4 >> vs) x (4 >> hs) chroma samples
+            for k, h, w, n, m in (("nf4", H, W, 4, 4),
+                                  ("nf4c", Hc, Wc, 4 >> vs, 4 >> hs)):
+                if a[k].dim() != 2 or a[k].shape[0] * n < h or \
+                        a[k].shape[1] * m < w:
+                    raise ValueError(f"{k} {tuple(a[k].shape)} does not "
+                                     f"cover a {w}x{h} plane")
+        st = {tuple(a[k].shape) for k in ("st_b0", "st_b2", "st_a3")}
+        if st not in ({(1, 1)}, {(Hc, Wc)}):
+            raise ValueError(f"st_b0 / st_b2 / st_a3 {sorted(st)}, want "
+                             f"all (1, 1) or all {(Hc, Wc)}")
+    if ybounds is not None and (len(ybounds) != 2 or
+                                any(len(b) != 2 for b in ybounds)):
+        raise ValueError(f"ybounds {ybounds}: want ((ytop, ybot), "
+                         f"(cytop, cybot))")
+
+
+def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
+                         tc_cv1, tc_ch1, tc_cv2, tc_ch2, sao,
+                         nop_v, noq_v, nop_h, noq_h,
+                         nop_cv, noq_cv, nop_ch, noq_ch, nf4, nf4c,
+                         st_b0, st_b2, st_a3, ybounds=None,
+                         *, bd, bdc, cs, do_deblock, do_sao, hs=1, vs=1,
+                         stage=contextlib.nullcontext):
+    """The in-loop filters of a picture (or of a halo band of one):
+    deblocking, vertical then horizontal edges, then SAO, on int32 planes
+    y [H, W], cb / cr [Hc, Wc] (views with contiguous rows are fine:
+    nothing is written in place); returns new (y, cb, cr). The control
+    arrays are int16, as `prep_filters` / `fargs_arrays` and
+    `edge_params` make them; the arguments are `apply_filters_ref`'s.
+
+    CUDA tensors make at most THREE launches of csrc/loop_filters.cu on
+    the current stream (vertical edges and horizontal edges inside
+    `stage("deblock")`, SAO inside `stage("sao")`; none for a step the
+    picture skips) into new buffers, and count them in `.launches`; CPU
+    tensors run `apply_filters_ref`. Equal, sample for sample, to
+    `apply_filters_ref`."""
+    fargs = (beta_v, tc_v, beta_h, tc_h, tc_cv1, tc_ch1, tc_cv2, tc_ch2,
+             sao, nop_v, noq_v, nop_h, noq_h, nop_cv, noq_cv, nop_ch,
+             noq_ch, nf4, nf4c, st_b0, st_b2, st_a3)
+    _check_filters((y, cb, cr), fargs, ybounds, bd, bdc, cs, do_deblock,
+                   do_sao, hs, vs)
+    kw = dict(bd=bd, bdc=bdc, cs=cs, do_deblock=do_deblock, do_sao=do_sao,
+              hs=hs, vs=vs, stage=stage)
+    if y.device.type == "cpu":
+        return apply_filters_ref(y, cb, cr, *fargs, ybounds, **kw)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    with torch.cuda.device(y.device):
+        return _filters_cuda((y, cb, cr), dict(zip(FARG_KEYS, fargs)),
+                             ybounds, **kw)
+
+
+apply_filters_device.launches = 0
+
+
+def _filters_cuda(planes, a, ybounds, *, bd, bdc, cs, do_deblock, do_sao,
+                  hs, vs, stage):
+    """`apply_filters_device`'s launches on the current card."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = _lib("loop_filters")
+    stream = torch.cuda.current_stream().cuda_stream
+    (H, W), (Hc, Wc) = planes[0].shape, planes[1].shape
+    dims = ((H, W), (Hc, Wc), (Hc, Wc))
+
+    def empty(n_chroma):     # Y and n_chroma chroma planes, one buffer
+        buf = torch.empty(H * W + n_chroma * Hc * Wc, dtype=torch.int32,
+                          device=planes[0].device)
+        return [t.view(s) for t, s in zip(
+            buf.split([H * W] + [Hc * Wc] * n_chroma), dims + dims[1:])]
+
+    def opt(t, like):        # a no-filter array, or None for a placeholder
+        return t if t.shape == like.shape else None     # (`_check_filters`)
+
+    def ptrs(ts):
+        return (P * len(ts))(*(None if t is None else t.data_ptr()
+                               for t in ts))
+
+    def deblock(vertical, src, dst, edges):
+        d = [v for s, t in zip(src, dst) for v in (*s.shape, s.stride(0),
+                                                  t.stride(0))]
+        rc = lib.deblock_launch(int(vertical), ptrs(src), ptrs(dst),
+                                (I * 12)(*d), ptrs(edges), bd, bdc, stream)
+        if rc != 0:
+            raise RuntimeError(f"deblock launch failed: cudaError_t {rc}")
+        apply_filters_device.launches += 1
+
+    vst = [None] * 3
+    # SAO's stale-read rule reads the vertical stage's chroma (CTB 16)
+    snap = do_deblock and do_sao and cs == 16 and \
+        a["st_b0"].shape == (Hc, Wc)
+    if do_deblock:
+        with stage("deblock"):
+            out = empty(4 if snap else 2)
+            v_edges = [a["beta_v"], a["tc_v"], opt(a["nop_v"], a["tc_v"]),
+                       opt(a["noq_v"], a["tc_v"])]
+            h_edges = [a["beta_h"], a["tc_h"], opt(a["nop_h"], a["tc_h"]),
+                       opt(a["noq_h"], a["tc_h"])]
+            for c in ("1", "2"):
+                tv, th = a["tc_cv" + c], a["tc_ch" + c]
+                v_edges += [None, tv, opt(a["nop_cv"], tv),
+                            opt(a["noq_cv"], tv)]
+                h_edges += [None, th, opt(a["nop_ch"], th),
+                            opt(a["noq_ch"], th)]
+            deblock(True, planes, out[:3], v_edges)
+            # a 16x16-CTB picture with SAO keeps the vertical stage's
+            # chroma for the stale-read masks: horizontal edges write new
+            # chroma planes there, and work in place everywhere else
+            done = [out[0], *out[3:]] if snap else out
+            deblock(False, out[:3], done, h_edges)
+            if snap:
+                vst = [None, out[1], out[2]]
+            planes = done
+    if do_sao:
+        with stage("sao"):
+            out = empty(2)
+            yb = ((0, H), (0, Hc)) if ybounds is None else ybounds
+            d = []       # h, w, pitch, vst pitch, CTB rows, cols, true rows
+            for c, p in enumerate(planes):
+                d += [*p.shape, p.stride(0), Wc, cs >> (vs if c else 0),
+                      cs >> (hs if c else 0), *yb[c > 0]]
+            nf = [None, None] if a["nf4"].shape == (1, 1) else \
+                [a["nf4"], a["nf4c"]]
+            nf_dims = (a["nf4"].shape[1], 4, 4) + \
+                (a["nf4c"].shape[1], 4 >> vs, 4 >> hs) * 2
+            st = [a["st_b0"], a["st_b2"], a["st_a3"]] if snap else [None] * 3
+            rc = lib.sao_launch(ptrs(planes), ptrs(vst), ptrs(out),
+                                (I * 24)(*d), ptrs(nf), (I * 9)(*nf_dims),
+                                ptrs(st), a["sao"].data_ptr(),
+                                a["sao"].shape[1], bd, bdc, stream)
+            if rc != 0:
+                raise RuntimeError(f"sao launch failed: cudaError_t {rc}")
+            apply_filters_device.launches += 1
+            planes = out
+    return tuple(planes)
