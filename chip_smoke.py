@@ -42,8 +42,10 @@ out). Phases (each one fails the run with a non-zero exit):
      evaluation of the tap plan, timed with its byte bound. On the first
      inter picture of the benchmark's 1080p stream
      (benchmark/streams/hevc_ra_1080p_qp32.265): the deblocking
-     edge-parameter kernel (csrc/edge_params.cu) == its plain version ==
-     `prep_filters`' numpy arrays, timed beside both and its byte bound.
+     edge-parameter kernel (csrc/edge_params.cu) == its plain version on
+     the card == its plain version on a CPU copy of the same grids (which
+     the CPU tests hold against the JAX package's `prep_filters`), timed
+     beside the plain version and its byte bound.
      From here on every `TorchEngine.prepare` of a picture deblocked on
      the card, and every such member a mesh's tile axis filters, must
      launch it once, and every other prepare never (`edge_watch`); its
@@ -82,9 +84,9 @@ out). Phases (each one fails the run with a non-zero exit):
          candidates must stay inside their tile) and as many more as
          fit the same budget (one banded launch a picture);
      (iii) host-scheduled filters: the first HOST_FILTER_PICTURES of
-         ra_tiles_1080p with `prep_filters` giving up on every picture
-         (banded launches as on the main path; the host_filters stage
-         timed);
+         ra_tiles_1080p with `prep_filters` giving up on every picture, so
+         that every filter plan takes the host route (banded launches as
+         on the main path; the host_filters stage timed);
      (iv) the CLI: `python3 -m openhevc_tpu_torch -i ... -o ... -n` as a
          subprocess on i_main as Annex-B and as an MP4 written by the
          port's `container.mux_mp4`, every frame of the .yuv md5-exact;
@@ -297,7 +299,7 @@ def edge_watch():
         before = edge_params.launches
         k = prepare(self, fs, ref_planes, shard)
         check(fs, before, int(shard is None and not fs.deblock_disabled and
-                              not k["host_filters"]), "prepare")
+                              on_device(k)), "prepare")
         return k
 
     def watched_combine(self, fs, gmap, ks, devices):
@@ -311,6 +313,12 @@ def edge_watch():
             patched(MeshFrameDecoder, "_combine_and_filter",
                     watched_combine):
         yield
+
+
+def on_device(k):
+    """Whether `TorchEngine.prepare`'s picture k is filtered on the device
+    (its filter plan's device route)."""
+    return k["filters"] is not None and k["filters"].route == "device"
 
 
 def filter_launches(fs):
@@ -347,8 +355,7 @@ def filter_watch():
     def watched_finish(self, fs, k):
         before = f.launches
         out = finish(self, fs, k)
-        check(fs, before, int(k["filters"] is not None and
-                              not k["host_filters"]), "finish")
+        check(fs, before, int(on_device(k)), "finish")
         return out
 
     def watched_combine(self, fs, gmap, ks, devices):
@@ -784,35 +791,34 @@ def check_mc_modes(name, fs, refs, device="cuda", phase="phase3"):
 def check_edge_params(reps=REPS):
     """Phase 3 for the edge-parameter kernel (csrc/edge_params.cu): on
     the first inter picture of the benchmark's 1080p stream (EDGE_STREAM),
-    the kernel == its plain version on the card == `prep_filters`' numpy
-    arrays; the kernel timed with CUDA events around one launch (mean of
-    reps; the wrapper's host time between the events included) and by
-    the profiler's device time, the plain version with CUDA events,
-    beside the byte bound (the grids read once, the eight arrays
-    written once)."""
+    the kernel == its plain version on the card == its plain version on a
+    CPU copy of the grids; the kernel timed with CUDA events around one
+    launch (mean of reps; the wrapper's host time between the events
+    included) and by the profiler's device time, the plain version with
+    CUDA events, beside the byte bound (the grids read once, the eight
+    arrays written once)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from openhevc_tpu_torch.ops.filters import (EDGE_KEYS, edge_inputs,
-                                                edge_params, edge_params_ref,
-                                                prep_filters)
+    from openhevc_tpu_torch.ops.filters import (edge_inputs, edge_params,
+                                                edge_params_ref)
     with open(EDGE_STREAM, "rb") as f:
         fs = parse_only(first_frames(f.read(), 2))[1]
     if not fs.inter_pbs or fs.deblock_disabled:
         raise AssertionError("the second picture of the 1080p stream is "
                              "not a deblocked inter picture")
     grids, kw = edge_inputs(fs)
+    grids = list(grids.values())
     args = [torch.from_numpy(np.array(a)).cuda() for a in grids]
     got = edge_params(*args, **kw)
     plain = edge_params_ref(*args, **kw)
-    pff = prep_filters(fs)
+    cpu = edge_params_ref(*(a.cpu() for a in args), **kw)
     err = max(max(int((a.int() - b.int()).abs().max()),
-                  int(np.abs(a.cpu().numpy().astype(np.int32) - pff[k])
-                      .max()))
-              for k, a, b in zip(EDGE_KEYS, got, plain))
+                  int((a.cpu().int() - c.int()).abs().max()))
+              for a, b, c in zip(got, plain, cpu))
     if err != 0:
         raise AssertionError(f"edge_params differs from the plain version "
-                             f"or prep_filters by up to {err}")
+                             f"on the card or on the CPU by up to {err}")
     sync()
     ms = sum(_elapsed_ms(lambda: edge_params(*args, **kw))
              for _ in range(reps)) / reps
@@ -858,12 +864,12 @@ def check_loop_filters(reps=REPS):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from openhevc_tpu_torch.decoder import Decoder
-    from openhevc_tpu_torch.models import pipeline
+    from openhevc_tpu_torch.ops import filters
     from openhevc_tpu_torch.ops.filters import (apply_filters_device,
                                                 apply_filters_ref)
     kept, err, calls = {}, 0, []
     path = keep = None
-    real = pipeline.apply_filters_device
+    real = filters.apply_filters_device
 
     def spy(*args, **kw):
         nonlocal err
@@ -890,7 +896,7 @@ def check_loop_filters(reps=REPS):
         if cut:
             data = first_frames(data, cut)
         calls.clear()
-        with patched(pipeline, "apply_filters_device", spy):
+        with patched(filters, "apply_filters_device", spy):
             dec = Decoder(device="cuda")
             pics = dec.decode(data) + dec.flush()
         if not cut:
@@ -1191,10 +1197,10 @@ def check_host_filters(counters):
     unfiltered, filtered on the host on the reference's CTB schedule and
     read back as a reference from there, md5-exact; the stages are
     timed."""
-    from openhevc_tpu_torch.models import pipeline
+    from openhevc_tpu_torch.ops import filters
     data = first_frames(load_stream("ra_tiles_1080p")[0],
                         HOST_FILTER_PICTURES)
-    with patched(pipeline, "prep_filters", lambda fs, **kw: None):
+    with patched(filters, "prep_filters", lambda fs: None):
         pics, _dt, dec, launches = route_decode(
             "ra_tiles_1080p", data, counters, "intra_fused_banded",
             "host filters", sync_timers=True)
@@ -1523,8 +1529,7 @@ def picture_route(eng, fs, k):
                              f"{k['bounds']}")
     return {"poc": int(fs.poc),
             "parse": "native" if fs.native_raw is not None else "python",
-            "filters": "host" if k["host_filters"] else
-                       "device" if k["filters"] is not None else "none",
+            "filters": k["filters"].route if k["filters"] else "none",
             "plan": kind, "jobs": int(k["n"]), "inter": bool(fs.inter_pbs),
             "pcm": len(fs.pcm_blocks)}
 
@@ -2178,7 +2183,8 @@ def run():
     r["max_abs_err"] = max(r["max_abs_err"], r444["max_abs_err"])
     r["rext_444_frame0"] = r444
     edge = check_edge_params()
-    print(f"phase3 edge_params == plain == prep_filters on POC "
+    print(f"phase3 edge_params == plain on the card == plain on the CPU "
+          f"on POC "
           f"{edge['poc']} of {os.path.basename(EDGE_STREAM)} "
           f"({edge['segments']} edge segments): max_abs_err "
           f"{edge['max_abs_err']}", flush=True)

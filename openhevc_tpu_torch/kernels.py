@@ -46,8 +46,17 @@ def build(name: str) -> str:
                       lambda out: [nvcc(), *NVCC_FLAGS, src, "-o", out])
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, signatures=None) -> ctypes.CDLL:
+    """Kernel library `name`, built at first use. signatures: {C function:
+    argument types} to set, each returning a C int (an error code); a
+    function the library lacks is skipped."""
     if name not in _libs:
         build(name)
         _libs[name] = ctypes.CDLL(lib_path(name))
-    return _libs[name]
+    lib = _libs[name]
+    for fn, types in (signatures or {}).items():
+        f = getattr(lib, fn, None)
+        if f is not None and f.argtypes is None:
+            f.argtypes = types
+            f.restype = ctypes.c_int
+    return lib

@@ -8,11 +8,11 @@ Counterpart of the JAX package's models/pipeline.py main path
      meta with each job's wavefront level (`host_pack`) and, where the
      picture has them, the cross-component scale map, the sparse motion
      deltas (`motion_diff2`), the weighted-prediction grids and the
-     in-loop filters' control tensors (`ops/filters.py::prep_filters`
-     without the per-edge parameters); on a deblocked picture, the
-     parser's per-4x4 grids, from which one launch right after the
-     upload makes the per-edge boundary strengths and beta / tc
-     (`ops/filters.py::edge_params`, csrc/edge_params.cu);
+     in-loop filters' named arrays (`plan.arrays` of the picture's filter
+     plan, `ops/filters.py::plan_filters`: control arrays and, on a
+     deblocked picture, the parser's per-4x4 grids, from which one
+     launch right after the upload makes the per-edge boundary strengths
+     and beta / tc, `plan.args`), each array by name (`upload`);
   2. level rebuild from the scan-prefix payload (`_arena_levels`);
   3. dequant + inverse transform per TU size (ops/idct.py) and the slot
      scatter into residual planes (`_residual_acc`);
@@ -31,8 +31,8 @@ Counterpart of the JAX package's models/pipeline.py main path
      nothing. Everything runs on one stream, in this order: an intra TU
      beside inter samples reads them from the finished prefill;
   6. whole-frame deblocking + SAO where the picture wants them
-     (ops/filters.py::apply_filters_device: on a card at most three
-     launches of csrc/loop_filters.cu);
+     (`plan.apply`: on a card at most three launches of
+     csrc/loop_filters.cu);
   7. crop + downcast into one flat uint8 (uint16 above 8 bits) tensor
      that stays on the device as the DPB entry (`TorchPlanes` fetches it
      to the host lazily); later pictures predict from it there.
@@ -58,18 +58,18 @@ route chosen by what the picture is, before any launch:
     hold;
   - a frame with no band plan takes the whole-frame kernel
     (`TorchEngine.fused_plan`);
-  - a picture whose filters fall outside the whole-frame device model
-    (`prep_filters` returns None) is fetched unfiltered after the kernel
-    and filtered on the host on the reference's CTB schedule
+  - a picture whose filter plan takes the host route (its filters fall
+    outside the whole-frame device model) is fetched unfiltered after
+    the kernel and filtered on the host on the reference's CTB schedule
     (ops/filters_sched.py, the "host_filters" stage); it stays a host
     picture, uploaded where a later picture predicts from it.
 Monochrome, unequal luma / chroma depths and depths outside 8-12 bits
 raise NotImplementedError (`check_slice`).
 
 A tile shard of a picture (parallel/mesh.py, the tile axis of a device
-mesh: `reconstruct(shard=(gmap, g))`) runs steps 1-5 with the residual
-TUs and intra jobs of tile group g only and stops before step 6: the
-mesh combines the shards, then filters.
+mesh: `prepare(shard=(gmap, g))`, then `launch`) runs steps 1-5 with the
+residual TUs and intra jobs of tile group g only and stops before step
+6: the mesh combines the shards, then filters them by the same plan.
 """
 from __future__ import annotations
 
@@ -81,9 +81,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..ops.filters import (EDGE_KEYS, FARG_KEYS, apply_filters_device,
-                           edge_inputs, edge_params, fargs_arrays,
-                           prep_filters)
+from ..ops.filters import plan_filters
 from ..ops.filters_sched import apply_loop_filters
 from ..ops.idct import residual_bucket
 from ..ops.intra_fused import (OY, OX, band_plan, check_rising,
@@ -537,21 +535,25 @@ def _inter_prefill(acc_l, acc_c, midx, mvals, hf0, hf1, hf2, wt=None, *,
                              denoms=denoms, pairs=pairs, stage=stage)
 
 
-def _upload(arrays, device) -> list[torch.Tensor]:
-    """ONE host->device copy for a list of numpy arrays: they are packed
-    into one byte buffer (16-byte aligned segments) and viewed back as
-    typed tensors on the device."""
-    offs, off = [], 0
-    for a in arrays:
-        offs.append(off)
+def upload(arrays: dict, device) -> dict:
+    """ONE host->device copy for {name: numpy array}: the arrays are
+    packed into one byte buffer (16-byte aligned segments) and viewed
+    back as typed tensors on the device, {name: tensor}. No arrays, no
+    copy."""
+    if not arrays:
+        return {}
+    offs, off = {}, 0
+    for k, a in arrays.items():
+        offs[k] = off
         off += (a.nbytes + 15) & ~15
     host = np.zeros(max(off, 16), np.uint8)
-    for a, o in zip(arrays, offs):
-        host[o:o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8) \
-            .reshape(-1)
+    for k, a in arrays.items():
+        host[offs[k]:offs[k] + a.nbytes] = \
+            np.ascontiguousarray(a).view(np.uint8).reshape(-1)
     dev = torch.from_numpy(host).to(device)
-    return [dev[o:o + a.nbytes].view(getattr(torch, a.dtype.name))
-            .reshape(a.shape) for a, o in zip(arrays, offs)]
+    return {k: dev[offs[k]:offs[k] + a.nbytes]
+            .view(getattr(torch, a.dtype.name)).reshape(a.shape)
+            for k, a in arrays.items()}
 
 
 def crop_pack(luma, chroma, H, W, Hc, Wc, bd):
@@ -573,8 +575,8 @@ def pack_planes(y, cb, cr, bd):
 def host_filtered(fs: FrameSymbols, flat, H, W, Hc, Wc):
     """The unfiltered flat output `flat` of a picture fetched, filtered
     on the host on the reference's CTB schedule (ops/filters_sched.py)
-    and kept there: the route of a picture whose filters lie outside the
-    whole-frame device model (`prep_filters` returns None)."""
+    and kept there: a filter plan's host route (the picture's filters
+    lie outside the whole-frame device model)."""
     planes = TorchPlanes(flat, H, W, Hc, Wc).get()
     out = apply_loop_filters(planes, fs)
     host = np.concatenate([p.reshape(-1) for p in out]) \
@@ -932,29 +934,17 @@ class TorchEngine:
 
     # ---- one picture ---------------------------------------------------------
 
-    def reconstruct(self, fs: FrameSymbols, ref_planes=None, shard=None):
+    def reconstruct(self, fs: FrameSymbols,
+                    ref_planes=None) -> TorchPlanes:
         """Reconstruct one parsed picture; the output stays on the
         device and nothing is read back from it, bar a picture whose
-        in-loop filters lie outside the whole-frame device model: its
-        unfiltered planes are fetched, filtered on the host on the
-        reference's CTB schedule (ops/filters_sched.py) and the result
-        stays on the host (timed as "host_filters"). ref_planes: {poc:
-        planes} of the pictures the decoder holds as references (decoded
-        pictures as `TorchPlanes`, read where they lie; host-only
-        concealment frames as [Y, Cb, Cr] arrays). Returns a
-        `TorchPlanes`.
-
-        shard=(gmap, g): one tile shard of the picture
-        (parallel/mesh.py): only the residual TUs and intra jobs of the
-        CTBs whose gmap [ctbs_h, ctbs_w] entry is g (`prepare`); the
-        inter prediction and the PCM samples of the whole picture. It
-        stops after the kernel, before the filters, and returns
-        `prepare`'s dict with the planes reconstructed in place: its
-        samples are right inside group g's CTBs only."""
-        if shard is not None:
-            k = self.prepare(fs, ref_planes, shard=shard)
-            self.launch(k)
-            return k
+        filter plan takes the host route: its unfiltered planes are
+        fetched, filtered on the host on the reference's CTB schedule
+        (ops/filters_sched.py) and the result stays on the host (timed as
+        "host_filters"). ref_planes: {poc: planes} of the pictures the
+        decoder holds as references (decoded pictures as `TorchPlanes`,
+        read where they lie; host-only concealment frames as [Y, Cb, Cr]
+        arrays). Returns a `TorchPlanes`."""
         k = self.prepare(fs, ref_planes)
         self.launch(k)
         return self.finish(fs, k)
@@ -971,12 +961,12 @@ class TorchEngine:
                 intra_fused_banded(k["meta"], k["bounds"], k["n"], *tail)
 
     def finish(self, fs: FrameSymbols, k: dict) -> TorchPlanes:
-        """Steps 6-7 after `launch`: in-loop filters on the un-padded
-        views where the picture wants them (on the device, or the
-        host-filter route), crop, downcast."""
+        """Steps 6-7 after `launch`: the in-loop filters on the un-padded
+        views as the picture's filter plan says (on the device, or the
+        host route), crop, downcast."""
         H, W, Hc, Wc = k["dims"]
         bd, f = k["bd"], k["filters"]
-        if k["host_filters"]:
+        if f is not None and f.route == "host":
             with self._stage("host_filters"):
                 return host_filtered(fs, crop_pack(k["luma"], k["chroma"], H,
                                                    W, Hc, Wc, bd), H, W, Hc,
@@ -985,22 +975,10 @@ class TorchEngine:
             with self._stage("crop_pack"):
                 flat = crop_pack(k["luma"], k["chroma"], H, W, Hc, Wc, bd)
         else:
-            # the `deblock` and `sao` spans say who filtered: kernel 1 the
-            # kernels of csrc/loop_filters.cu (a card), 0 the plain version
-            kernel = int(k["luma"].device.type == "cuda")
-
-            @contextlib.contextmanager
-            def stage(name):
-                with self._stage(name):
-                    trace.annotate(kernel=kernel)
-                    yield
-
-            y, cb, cr = apply_filters_device(
-                k["luma"][OY:OY + H, OX:OX + W],
-                k["chroma"][0, OY:OY + Hc, OX:OX + Wc],
-                k["chroma"][1, OY:OY + Hc, OX:OX + Wc], *f["fargs"],
-                bd=bd, bdc=bd, cs=f["cs"], do_deblock=f["do_deblock"],
-                do_sao=f["do_sao"], hs=k["hs"], vs=k["vs"], stage=stage)
+            y, cb, cr = f.apply(k["luma"][OY:OY + H, OX:OX + W],
+                                k["chroma"][0, OY:OY + Hc, OX:OX + Wc],
+                                k["chroma"][1, OY:OY + Hc, OX:OX + Wc],
+                                k["filter_args"], stage=self._stage)
             with self._stage("crop_pack"):
                 flat = pack_planes(y, cb, cr, bd)
         return TorchPlanes(flat, H, W, Hc, Wc, device_filtered=f is not None)
@@ -1009,12 +987,13 @@ class TorchEngine:
         """Steps 1-5 up to the intra kernel: the kernel's arguments
         (meta, n, luma, chroma, res_l, res_c, bd, order, level_bounds,
         and bounds, None for the whole-frame kernel) plus the frame dims
-        (H, W, Hc, Wc), `filters` (None, or the in-loop filters' device
-        tensors and flags) and `host_filters` (the picture's filters run
-        on the host after the kernel), all on this engine's device. For
-        a banded plan the meta is band sorted (its bounds checked here,
-        on the host) and the planes have `band_plan`'s dims. The level
-        schedule is made on the device from the uploaded level row.
+        (H, W, Hc, Wc), `filters` (the picture's filter plan,
+        `plan_filters`, or None) and `filter_args` (on the plan's device
+        route its arguments, `plan.args`; else None), all on this
+        engine's device. For a banded plan the meta is band sorted (its
+        bounds checked here, on the host) and the planes have
+        `band_plan`'s dims. The level schedule is made on the device from
+        the uploaded level row.
 
         The starting planes luma / chroma hold, by what the picture is:
         on an inter picture with a reference at hand, the inter
@@ -1023,12 +1002,12 @@ class TorchEngine:
         inter blocks then; on any picture, its PCM samples written over
         that; elsewhere 0. Intra pixels are 0.
 
-        shard=(gmap, g) (`reconstruct`): the meta is cut to group g's
-        jobs on the host before the upload (`meta6_tile_group`: levels
-        renumbered densely; band sorted after the cut on a banded plan),
-        gmap rides in the upload and the residual keeps group g's TUs
-        only; no filter data is made (`filters` None, `host_filters`
-        False): the mesh filters the combined picture."""
+        shard=(gmap, g) (one tile shard, parallel/mesh.py): the meta is
+        cut to group g's jobs on the host before the upload
+        (`meta6_tile_group`: levels renumbered densely; band sorted after
+        the cut on a banded plan), gmap rides in the upload and the
+        residual keeps group g's TUs only; no filter plan is made
+        (`filters` None): the mesh filters the combined picture."""
         check_slice(fs)
         sps = fs.sps
         H, W = sps.height, sps.width
@@ -1046,67 +1025,47 @@ class TorchEngine:
                 gmap, g = shard
                 meta6, n, n_levels = meta6_tile_group(
                     meta6, n, gmap, g, sps.log2_ctb, hs, vs)
-            host = [npk["arena4"], npk["arena16"], npk["esc"], meta6]
-            at = {}
+            host = dict(arena4=npk["arena4"], arena16=npk["arena16"],
+                        esc=npk["esc"], meta6=meta6)
             if shard is not None:
-                at["gmap"] = len(host)
-                host.append(np.ascontiguousarray(gmap, np.int32))
+                host["gmap"] = np.ascontiguousarray(gmap, np.int32)
             smap = ccp_scale_map(fs)
             if smap is not None:
-                at["ccp"] = len(host)
-                host.append(smap)
+                host["ccp"] = smap
             if plan[0] == "banded":
-                host[3], bounds = sort_meta_by_band(meta6, n, plan[2], vs,
-                                                    plan[3])
-                check_rising(bounds, n, "bounds")
-                at["bounds"] = len(host)
-                host.append(bounds)
-            want_filters = shard is None and (
-                not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma)
-            pff = prep_filters(fs, edges=False) if want_filters else None
-            n_edge = 0
-            if pff is not None:
-                # the per-edge parameters are made on the device from the
-                # parser's grids (`edge_params`); the rest rides as it is
-                n_edge = len(EDGE_KEYS) if pff["do_deblock"] else 0
-                at["fargs"] = len(host)
-                host.extend(fargs_arrays(pff)[n_edge:])
-            if n_edge:
-                grids, edge_kw = edge_inputs(fs)
-                at["edges"] = len(host)
-                host.extend(grids)
+                host["meta6"], host["bounds"] = sort_meta_by_band(
+                    meta6, n, plan[2], vs, plan[3])
+                check_rising(host["bounds"], n, "bounds")
+            filters = None if shard is not None else plan_filters(fs)
+            on_device = filters is not None and filters.route == "device"
+            if on_device:
+                host.update(filters.arrays)
             if fs.pcm_blocks:
-                at["pcm"] = len(host)
-                host.extend(pcm_scatter(fs, wl, wc, hc))
+                host.update(zip(("pcm_il", "pcm_vl", "pcm_ic", "pcm_vc"),
+                                pcm_scatter(fs, wl, wc, hc)))
         inter = None
         if fs.inter_pbs:
             inter = self._pack_inter(fs, ref_planes or {}, (H, W, Hc, Wc))
         if inter is not None:
-            at["md"] = len(host)
-            host += [inter["md"]["idx"], inter["md"]["vals"]]
-            if inter["wt"] is not None:
-                at["wt"] = len(host)
-                host += [inter["wt"]["wg"], inter["wt"]["og"]]
+            md, wt = inter["md"], inter["wt"]
+            host.update(md_idx=md["idx"], md_vals=md["vals"])
+            if wt is not None:
+                host.update(wt_w=wt["wg"], wt_o=wt["og"])
         with self._stage("upload"):
-            dev = _upload(host, self.device)
-            self.h2d_bytes += dev[0].untyped_storage().nbytes()
-        arena4, arena16, escs, meta6 = dev[:4]
-        bounds = dev[at["bounds"]] if "bounds" in at else None
-        edges = ()
-        if n_edge:
-            with self._stage("edge_params"):
-                g = dev[at["edges"]:at["edges"] + len(grids)]
-                edges = edge_params(*g, **edge_kw)
-                trace.annotate(kernel=1)
+            dev = upload(host, self.device)
+            self.h2d_bytes += dev["arena4"].untyped_storage().nbytes()
+        meta6 = dev["meta6"]
+        filter_args = filters.args(dev, self._stage) if on_device else None
 
         with self._stage("residual"):
             group = None if shard is None else \
-                (dev[at["gmap"]], shard[1], sps.log2_ctb, hs, vs)
-            acc_l, acc_c = _residual_acc(arena4, arena16, escs,
+                (dev["gmap"], shard[1], sps.log2_ctb, hs, vs)
+            acc_l, acc_c = _residual_acc(dev["arena4"], dev["arena16"],
+                                         dev["esc"],
                                          caps=npk["caps"], H=H, W=W, Hc=Hc,
                                          Wc=Wc, bd=bd, group=group)
-            if "ccp" in at and acc_l is not None:
-                acc_c = _apply_ccp(acc_l, acc_c, dev[at["ccp"]])
+            if "ccp" in dev and acc_l is not None:
+                acc_c = _apply_ccp(acc_l, acc_c, dev["ccp"])
             res_l = torch.zeros((hl, wl), dtype=torch.int32,
                                 device=self.device)
             res_c = torch.zeros((2, hc, wc), dtype=torch.int32,
@@ -1117,10 +1076,9 @@ class TorchEngine:
 
         # ---- starting planes (inter prediction or zeros; PCM samples) ----
         if inter is not None:
-            md, wt = inter["md"], inter["wt"]
             luma, chroma = _inter_prefill(
-                acc_l, acc_c, dev[at["md"]], dev[at["md"] + 1], *inter["hf"],
-                wt=(dev[at["wt"]], dev[at["wt"] + 1]) if wt else None,
+                acc_l, acc_c, dev["md_idx"], dev["md_vals"], *inter["hf"],
+                wt=(dev["wt_w"], dev["wt_o"]) if wt else None,
                 H=H, W=W, Hc=Hc, Wc=Wc, hl=hl, wl=wl, hc=hc, wc=wc, bd=bd,
                 hs=hs, vs=vs, h4=md["h4"], w4=md["w4"],
                 denoms=tuple(wt["denoms"]) if wt else None,
@@ -1130,10 +1088,10 @@ class TorchEngine:
                                device=self.device)
             chroma = torch.zeros((2, hc, wc), dtype=torch.int32,
                                  device=self.device)
-        if "pcm" in at:
-            il, vl, ic, vc = dev[at["pcm"]:at["pcm"] + 4]
-            luma.view(-1)[il.long()] = vl.to(torch.int32)
-            chroma.view(-1)[ic.long()] = vc.to(torch.int32)
+        if fs.pcm_blocks:
+            luma.view(-1)[dev["pcm_il"].long()] = dev["pcm_vl"].to(torch.int32)
+            chroma.view(-1)[dev["pcm_ic"].long()] = \
+                dev["pcm_vc"].to(torch.int32)
 
         with self._stage("meta_schedule"):
             order, level_bounds = level_schedule(meta6[5], n, n_levels)
@@ -1142,15 +1100,7 @@ class TorchEngine:
                 sdis=bool(getattr(sps, "intra_smoothing_disabled", 0)),
                 c444=sps.chroma_format_idc == 3,
                 strong=bool(sps.strong_intra_smoothing))
-        filters = None
-        if pff is not None:
-            i = at["fargs"]
-            rest = len(FARG_KEYS) - n_edge
-            filters = dict(fargs=(*edges, *dev[i:i + rest]),
-                           do_deblock=pff["do_deblock"],
-                           do_sao=pff["do_sao"], cs=1 << sps.log2_ctb)
-        return dict(meta=meta16, n=n, bounds=bounds, order=order,
+        return dict(meta=meta16, n=n, bounds=dev.get("bounds"), order=order,
                     level_bounds=level_bounds, luma=luma, chroma=chroma,
                     res_l=res_l, res_c=res_c, bd=bd, dims=(H, W, Hc, Wc),
-                    hs=hs, vs=vs, filters=filters,
-                    host_filters=want_filters and pff is None)
+                    hs=hs, vs=vs, filters=filters, filter_args=filter_args)

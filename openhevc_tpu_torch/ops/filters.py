@@ -8,16 +8,25 @@ dense stencils (`roll` / `reshape` / `where`) over the whole frame,
 which the kernels equal sample for sample (scalar truth in the JAX
 package: ops/deblock_np.py, ops/sao_np.py, ops/filters_sched.py).
 
+The one entry point is `plan_filters(fs)`: None for a picture with no
+filters, else a `FilterPlan` that says the route (the device, or the
+host's CTB schedule where a halo pattern falls outside the whole-frame
+model) and carries what the device route needs by name. The engine
+(models/pipeline.py) and a mesh's tile axis (parallel/mesh.py) follow
+it and know nothing else of the filters' data: they put `plan.arrays`
+(or its grids) into their upload and call `plan.args` (one
+`edge_params` launch) and `plan.apply`. The order of `FARG_KEYS` and the
+(1, 1) placeholders of the control arrays a picture lacks stay inside
+this module.
+
 Design: the host derives the per-edge control data that depends on the
 picture's structure (no-filter flags, the CTB-16 chroma halo, per-CTB
-SAO parameters) as SMALL numpy arrays, which ride in the picture's one
-upload, and the device applies the sample stencils over the whole
-frame. The per-edge boundary strengths and beta / tc thresholds are
-made on the device from the parser's per-4x4 grids (`edge_params`: the
-kernel csrc/edge_params.cu on a card, its plain PyTorch version
-`edge_params_ref` on the CPU), on the engine's route and on a mesh's
-tile axis alike; `prep_filters` makes them with numpy only when asked
-(`edges=True`), as the yardstick of both. In the plain version,
+SAO parameters) as SMALL numpy arrays (`prep_filters`), which ride in
+the picture's one upload, and the device applies the sample stencils
+over the whole frame. The per-edge boundary strengths and beta / tc
+thresholds are made on the device from the parser's per-4x4 grids
+(`edge_params`: the kernel csrc/edge_params.cu on a card, its plain
+PyTorch version `edge_params_ref` on the CPU). In the plain version,
 vertical-edge windows tile a row exactly (edges are 8 apart, each window
 spans +-4), so a pass is one reshape + elementwise math; the horizontal
 passes run on the transposed plane. The kernels keep that tiling: one
@@ -28,9 +37,9 @@ CTB schedule, including PCM / transquant-bypass no-filter blocks (write
 suppression per edge + restore after SAO, of which the chroma restore
 covers only the top-left quadrant of a CTB, as the reference does) and
 the 16x16-CTB SAO chroma halo (`_chroma_stale_reads`). Where a halo
-pattern falls outside that model `prep_filters` returns None; the caller
-must then not use these filters (TorchEngine raises). Bit-exact with the
-JAX package's module (integers; tolerance none).
+pattern falls outside that model `prep_filters` returns None and the
+plan's route is "host". Bit-exact with the JAX package's module
+(integers; tolerance none).
 """
 from __future__ import annotations
 
@@ -41,12 +50,15 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from ..bitstream.syntax import chroma_qp
+from ..utils import trace
 from .tables import BETA_TABLE, TC_TABLE
 
 
 # =========================================================================
-# Host side: vectorized boundary strengths + per-edge parameters
+# Host side: vectorized boundary strengths (the host-filter route,
+# ops/filters_sched.py) and the control arrays
 # =========================================================================
 
 def _mv_bs_vec(mc, psel, qsel):
@@ -153,28 +165,6 @@ FARG_KEYS = ("beta_v", "tc_v", "beta_h", "tc_h", "tc_cv1", "tc_ch1",
              "noq_h", "nop_cv", "noq_cv", "nop_ch", "noq_ch", "nf4",
              "nf4c", "st_b0", "st_b2", "st_a3")
 EDGE_KEYS = FARG_KEYS[:8]       # what `edge_params` makes, in this order
-
-
-def fargs_arrays(pff):
-    """prep_filters dict -> the positional filter tensors of
-    apply_filters_device, (1,1)/(1,1,3,6) placeholders where absent."""
-    z2 = np.zeros((1, 1), np.int16)
-    z4 = np.zeros((1, 1, 3, 6), np.int16)
-    return tuple(pff.get(k, z4 if k == "sao" else z2) for k in FARG_KEYS)
-
-
-def device_filters_ok(fs) -> bool:
-    """Whole-frame device filtering reproduces the reference's staggered
-    schedule including PCM/transquant-bypass no-filter blocks (per-edge
-    write suppression + post-SAO restore, restore_tqb_pixels behavior)
-    and the 16x16-CTB SAO chroma-halo timing (vertical-stage sourcing,
-    sao_np.py docstring). Fully chroma-format-generic
-    (4:2:0/4:2:2/4:4:4, hevc_filter.c:345's 8*h / 8*v edge spacing),
-    including the CTB-16 halo simulation (_chroma_stale_reads); streams
-    whose halo pattern falls outside the modeled +x offsets fall back
-    via prep_filters returning None."""
-    sps = fs.sps
-    return sps.chroma_format_idc in (1, 2, 3)
 
 
 def _no_filter_mask(fs):
@@ -362,23 +352,26 @@ def chroma_qp_luts(fs) -> np.ndarray:
                      for o in offs])
 
 
-def prep_filters(fs, edges=True):
-    """All control tensors for one frame's device filtering; None when
-    nothing to do. Shapes are tiny (per 4-sample edge / per CTB).
-    edges=False leaves out the eight per-edge parameter arrays
-    (`EDGE_KEYS`), which `edge_params` then makes on the device."""
+def _steps(fs):
+    """(deblocking, SAO): which filters the picture runs."""
+    return (not fs.deblock_disabled,
+            bool(fs.sps.sao_enabled and (fs.sao_luma or fs.sao_chroma)))
+
+
+def prep_filters(fs):
+    """The host half of one filtered picture's device filtering: the
+    control arrays that depend on the picture's structure, where the
+    picture has them (the no-filter grids, the CTB-16 stale-read masks,
+    the per-CTB SAO parameters: small int16 arrays by name). None when a
+    halo pattern falls outside the whole-frame device model (the picture
+    then takes the host filters, `plan_filters`). The per-edge
+    parameters are made on the device (`edge_params`)."""
     sps = fs.sps
-    do_deblock = not fs.deblock_disabled
-    do_sao = bool(sps.sao_enabled and (fs.sao_luma or fs.sao_chroma))
-    if not do_deblock and not do_sao:
-        return None
-    H, W = sps.height, sps.width
-    h4, w4, h8, w8 = H >> 2, W >> 2, H >> 3, W >> 3
-    bd, bdc = sps.bit_depth, sps.bit_depth_chroma
-    out = {"do_deblock": do_deblock, "do_sao": do_sao}
+    do_deblock, do_sao = _steps(fs)
+    out = {}
     nf = _no_filter_mask(fs)
     if nf is not None:
-        out.update(_nofilter_grids(fs, nf, H, W))
+        out.update(_nofilter_grids(fs, nf, sps.height, sps.width))
     if do_sao and do_deblock and sps.log2_ctb == 4:
         masks = _chroma_stale_reads(fs)
         if masks is None:
@@ -386,61 +379,6 @@ def prep_filters(fs, edges=True):
         out["st_b0"] = masks[(1, 0)]
         out["st_b2"] = masks[(1, 1)]
         out["st_a3"] = masks[(1, -1)]
-    if do_deblock and edges:
-        vbs, hbs = boundary_strengths_vec(fs)
-        qp4 = fs.qp_y4[:h4, :w4].astype(np.int32)
-        bo, to = fs.beta_offset, fs.tc_offset
-
-        def luma_params(bs, qp_p, qp_q):
-            qp = (qp_p + qp_q + 1) >> 1
-            beta = BETA_TABLE[np.clip(qp + bo, 0, 51)] << (bd - 8)
-            tc = TC_TABLE[np.clip(qp + 2 * (bs - 1) + to, 0, 53)] << (bd - 8)
-            act = bs > 0
-            return (np.where(act, beta, 0).astype(np.int16),
-                    np.where(act, tc, 0).astype(np.int16))
-
-        beta_v = np.zeros((h4, w8), np.int16)
-        tc_v = np.zeros((h4, w8), np.int16)
-        if w8 > 1:
-            beta_v[:, 1:], tc_v[:, 1:] = luma_params(
-                vbs[:, 1:], qp4[:, 1:w4 - 1:2], qp4[:, 2::2])
-        beta_h = np.zeros((h8, w4), np.int16)
-        tc_h = np.zeros((h8, w4), np.int16)
-        if h8 > 1:
-            beta_h[1:], tc_h[1:] = luma_params(
-                hbs[1:], qp4[1:h4 - 1:2], qp4[2::2])
-        out.update(beta_v=beta_v, tc_v=tc_v, beta_h=beta_h, tc_h=tc_h)
-
-        # chroma edges: every 8 chroma samples (= 8*h / 8*v luma,
-        # hevc_filter.c:423), bs==2 only; format-generic via hs/vs.
-        # Edge-window counts are CEIL(dim/8): chroma dims need not be
-        # 8-multiples (1080p 4:2:0 Hc=540 has a real edge at row 536)
-        hs, vs = sps.hshift1, sps.vshift1
-        Hc, Wc = H >> vs, W >> hs
-        wc8, hc8 = (Wc + 7) >> 3, (Hc + 7) >> 3
-        hc4, wc4 = Hc >> 2, Wc >> 2
-        for c_idx, qlut in zip((1, 2), chroma_qp_luts(fs)):
-            tcv = np.zeros((hc4, wc8), np.int16)
-            if wc8 > 1:
-                # chroma seg (cy4, cx8): luma edge x8=cx8<<hs, y4=cy4<<vs
-                cy4, cx8 = np.mgrid[0:hc4, 1:wc8]
-                bs = vbs[cy4 << vs, cx8 << hs]
-                qp_l = (qp4[cy4 << vs, (cx8 << hs) * 2 - 1] +
-                        qp4[cy4 << vs, (cx8 << hs) * 2] + 1) >> 1
-                qpc = qlut[np.clip(qp_l, -32, 63) + 32]
-                tc = TC_TABLE[np.clip(qpc + 2 + to, 0, 53)] << (bdc - 8)
-                tcv[:, 1:] = np.where(bs == 2, tc, 0)
-            tch = np.zeros((hc8, wc4), np.int16)
-            if hc8 > 1:
-                cy8, cx4 = np.mgrid[1:hc8, 0:wc4]
-                bs = hbs[cy8 << vs, cx4 << hs]
-                qp_l = (qp4[(cy8 << vs) * 2 - 1, cx4 << hs] +
-                        qp4[(cy8 << vs) * 2, cx4 << hs] + 1) >> 1
-                qpc = qlut[np.clip(qp_l, -32, 63) + 32]
-                tc = TC_TABLE[np.clip(qpc + 2 + to, 0, 53)] << (bdc - 8)
-                tch[1:] = np.where(bs == 2, tc, 0)
-            out[f"tc_cv{c_idx}"] = tcv
-            out[f"tc_ch{c_idx}"] = tch
     if do_sao:
         # per-CTB params [cH, cW, 3, 6] int16 as-is; luma/chroma gates
         sao = fs.sao.astype(np.int16).copy()
@@ -458,25 +396,25 @@ def prep_filters(fs, edges=True):
 
 def edge_inputs(fs):
     """`edge_params`' arguments for one picture: (grids, scalars), for
-    `edge_params(*grids, **scalars)` once the grids are on the device.
-    grids: pred_mode, cbf_luma4, bounds_v, bounds_h (uint8), qp_y4
-    (int8), all [gh, gw] as the parser made them (CTB-padded), the
-    [2, 96] chroma QP tables (`chroma_qp_luts`), then, on a picture with
-    inter blocks, the motion grids pred_flag (uint8 [gh, gw]), mv (int16
-    [gh, gw, 2, 2]: H.265 bounds MVs to 16 bits) and refpoc (int32
-    [gh, gw, 2]). A picture without inter blocks is intra throughout,
-    where the motion never decides a strength."""
+    `edge_params(*grids.values(), **scalars)` once the grids are on the
+    device. grids, by name and in that order: pred_mode, cbf, bounds_v,
+    bounds_h (uint8), qp (int8), all [gh, gw] as the parser made them
+    (CTB-padded), the [2, 96] chroma QP tables qlut (`chroma_qp_luts`),
+    then, on a picture with inter blocks, the motion grids pred_flag
+    (uint8 [gh, gw]), mv (int16 [gh, gw, 2, 2]: H.265 bounds MVs to 16
+    bits) and refpoc (int32 [gh, gw, 2]). A picture without inter blocks
+    is intra throughout, where the motion never decides a strength."""
     sps = fs.sps
-    grids = [np.asarray(fs.pred_mode, np.uint8),
-             np.asarray(fs.cbf_luma4, np.uint8),
-             np.asarray(fs.bounds_v, np.uint8),
-             np.asarray(fs.bounds_h, np.uint8),
-             np.asarray(fs.qp_y4, np.int8), chroma_qp_luts(fs)]
+    grids = dict(pred_mode=np.asarray(fs.pred_mode, np.uint8),
+                 cbf=np.asarray(fs.cbf_luma4, np.uint8),
+                 bounds_v=np.asarray(fs.bounds_v, np.uint8),
+                 bounds_h=np.asarray(fs.bounds_h, np.uint8),
+                 qp=np.asarray(fs.qp_y4, np.int8), qlut=chroma_qp_luts(fs))
     if fs.inter_pbs and fs.motion is not None:
         mc = fs.motion
-        grids += [np.asarray(mc.pred_flag, np.uint8),
-                  np.asarray(mc.mv, np.int16),
-                  np.asarray(mc.refpoc, np.int32)]
+        grids.update(pred_flag=np.asarray(mc.pred_flag, np.uint8),
+                     mv=np.asarray(mc.mv, np.int16),
+                     refpoc=np.asarray(mc.refpoc, np.int32))
     return grids, dict(H=sps.height, W=sps.width, hs=sps.hshift1,
                        vs=sps.vshift1, bd=sps.bit_depth,
                        bdc=sps.bit_depth_chroma,
@@ -634,7 +572,7 @@ def edge_params(pm, cbf, bv, bh, qp, qlut, *motion, H, W, hs, vs, bd, bdc,
     bh uint8 and qp int8 [gh, gw] (gh >= H / 4, gw >= W / 4), qlut int32
     [2, 96], then on a picture with inter blocks the motion: pred_flag
     uint8 [gh, gw], mv int16 [gh, gw, 2, 2], refpoc int32 [gh, gw, 2].
-    Equal, array for array, to `prep_filters`' numpy arrays.
+    Equal, array for array, to `edge_params_ref`.
 
     CUDA tensors make ONE launch of csrc/edge_params.cu on the current
     stream into one new buffer and count it; CPU tensors run
@@ -651,7 +589,7 @@ def edge_params(pm, cbf, bv, bh, qp, qlut, *motion, H, W, hs, vs, bd, bdc,
     sizes = [a * b for a, b in shapes]
     out = torch.empty(sum(sizes), dtype=torch.int16, device=pm.device)
     pf, mv, poc = [t.data_ptr() for t in motion] or [None] * 3
-    lib = _lib()
+    lib = kernels.load("edge_params", _SIGNATURES["edge_params"])
     with torch.cuda.device(pm.device):
         rc = lib.edge_params_launch(
             *(t.data_ptr() for t in grids), pf, mv, poc, pm.shape[1],
@@ -666,29 +604,17 @@ def edge_params(pm, cbf, bv, bh, qp, qlut, *motion, H, W, hs, vs, bd, bdc,
 edge_params.launches = 0
 
 
-def _signatures():
-    """{library: {C function: argument types}} of the kernels in this
-    module."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    PP, PI = ctypes.POINTER(P), ctypes.POINTER(I)
-    return {"edge_params": {
-                "edge_params_launch": [P] * 8 + [I, P, P] + [I] * 8 + [P]},
-            "loop_filters": {
-                "deblock_launch": [I, PP, PP, PI, PP, I, I, P],
-                "sao_launch": [PP, PP, PP, PI, PP, PI, PP, P, I, I, I, P]}}
-
-
-def _lib(name="edge_params"):
-    """Kernel library `name`, built at first use, its argument types
-    set."""
-    from .. import kernels
-    lib = kernels.load(name)
-    for fn, types in _signatures()[name].items():
-        f = getattr(lib, fn)
-        if f.argtypes is None:
-            f.argtypes = types
-            f.restype = ctypes.c_int
-    return lib
+# {library: {C function: argument types}} of the kernels in this module
+# (`kernels.load`)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PP, _PI = ctypes.POINTER(_P), ctypes.POINTER(_I)
+_SIGNATURES = {
+    "edge_params": {
+        "edge_params_launch": [_P] * 8 + [_I, _P, _P] + [_I] * 8 + [_P]},
+    "loop_filters": {
+        "deblock_launch": [_I, _PP, _PP, _PI, _PP, _I, _I, _P],
+        "sao_launch": [_PP, _PP, _PP, _PI, _PP, _PI, _PP, _P, _I, _I, _I,
+                       _P]}}
 
 
 # =========================================================================
@@ -1042,8 +968,10 @@ def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
     deblocking, vertical then horizontal edges, then SAO, on int32 planes
     y [H, W], cb / cr [Hc, Wc] (views with contiguous rows are fine:
     nothing is written in place); returns new (y, cb, cr). The control
-    arrays are int16, as `prep_filters` / `fargs_arrays` and
-    `edge_params` make them; the arguments are `apply_filters_ref`'s.
+    arrays are int16, as `prep_filters` and `edge_params` make them, in
+    the order of `FARG_KEYS` ((1, 1) placeholders, (1, 1, 3, 6) for
+    `sao`, where a picture has none: `FilterPlan.apply` fills them in);
+    the arguments are `apply_filters_ref`'s.
 
     CUDA tensors make at most THREE launches of csrc/loop_filters.cu on
     the current stream (vertical edges and horizontal edges inside
@@ -1068,13 +996,15 @@ def apply_filters_device(y, cb, cr, beta_v, tc_v, beta_h, tc_h,
 
 
 apply_filters_device.launches = 0
+# the kernels count on the function itself, also while a caller's spy
+# stands in for this module's name of it (the plan calls it by that name)
+_FILTERS = apply_filters_device
 
 
 def _filters_cuda(planes, a, ybounds, *, bd, bdc, cs, do_deblock, do_sao,
                   hs, vs, stage):
     """`apply_filters_device`'s launches on the current card."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib = _lib("loop_filters")
+    lib = kernels.load("loop_filters", _SIGNATURES["loop_filters"])
     stream = torch.cuda.current_stream().cuda_stream
     (H, W), (Hc, Wc) = planes[0].shape, planes[1].shape
     dims = ((H, W), (Hc, Wc), (Hc, Wc))
@@ -1089,17 +1019,17 @@ def _filters_cuda(planes, a, ybounds, *, bd, bdc, cs, do_deblock, do_sao,
         return t if t.shape == like.shape else None     # (`_check_filters`)
 
     def ptrs(ts):
-        return (P * len(ts))(*(None if t is None else t.data_ptr()
-                               for t in ts))
+        return (_P * len(ts))(*(None if t is None else t.data_ptr()
+                                for t in ts))
 
     def deblock(vertical, src, dst, edges):
         d = [v for s, t in zip(src, dst) for v in (*s.shape, s.stride(0),
                                                   t.stride(0))]
         rc = lib.deblock_launch(int(vertical), ptrs(src), ptrs(dst),
-                                (I * 12)(*d), ptrs(edges), bd, bdc, stream)
+                                (_I * 12)(*d), ptrs(edges), bd, bdc, stream)
         if rc != 0:
             raise RuntimeError(f"deblock launch failed: cudaError_t {rc}")
-        apply_filters_device.launches += 1
+        _FILTERS.launches += 1
 
     vst = [None] * 3
     # SAO's stale-read rule reads the vertical stage's chroma (CTB 16)
@@ -1141,11 +1071,113 @@ def _filters_cuda(planes, a, ybounds, *, bd, bdc, cs, do_deblock, do_sao,
                 (a["nf4c"].shape[1], 4 >> vs, 4 >> hs) * 2
             st = [a["st_b0"], a["st_b2"], a["st_a3"]] if snap else [None] * 3
             rc = lib.sao_launch(ptrs(planes), ptrs(vst), ptrs(out),
-                                (I * 24)(*d), ptrs(nf), (I * 9)(*nf_dims),
+                                (_I * 24)(*d), ptrs(nf), (_I * 9)(*nf_dims),
                                 ptrs(st), a["sao"].data_ptr(),
                                 a["sao"].shape[1], bd, bdc, stream)
             if rc != 0:
                 raise RuntimeError(f"sao launch failed: cudaError_t {rc}")
-            apply_filters_device.launches += 1
+            _FILTERS.launches += 1
             planes = out
     return tuple(planes)
+
+
+# =========================================================================
+# The filter plan: the one entry point of the engine and the mesh
+# =========================================================================
+
+@functools.lru_cache(maxsize=None)
+def _placeholder(device: torch.device, sao: bool) -> torch.Tensor:
+    """The (1, 1) int16 stand-in ((1, 1, 3, 6) for `sao`) of a control
+    array a picture does not have: one per device for the whole process,
+    never uploaded with a picture. The kernels and the plain version read
+    only its shape."""
+    return torch.zeros((1, 1, 3, 6) if sao else (1, 1), dtype=torch.int16,
+                       device=device)
+
+
+@contextlib.contextmanager
+def _annotated(stage, name, kernel):
+    with stage(name):
+        trace.annotate(kernel=kernel)
+        yield
+
+
+class FilterPlan:
+    """How one picture's in-loop filters run (`plan_filters`).
+
+    route: "device" (the whole-frame model: `edge_params`, then
+    `apply_filters_device`) or "host" (outside that model: the caller
+    fetches the unfiltered picture and filters it on the host, on the
+    reference's CTB schedule, ops/filters_sched.py). do_deblock, do_sao,
+    cs (CTB size), hs, vs, bd, bdc: the picture's steps and format.
+    controls: {name: int16 numpy array}, the control arrays the picture
+    has (`prep_filters`; a picture lacks those it does not need). grids
+    and edge_kw: the per-4x4 grids and scalars `edge_params` makes the
+    per-edge parameters from (`edge_inputs`; empty unless the picture is
+    deblocked on the device). `arrays` is what rides in the picture's
+    upload."""
+
+    def __init__(self, route, do_deblock, do_sao, fs, controls=None,
+                 grids=None, edge_kw=None):
+        sps = fs.sps
+        self.route, self.do_deblock, self.do_sao = route, do_deblock, do_sao
+        self.cs, self.hs, self.vs = 1 << sps.log2_ctb, sps.hshift1, \
+            sps.vshift1
+        self.bd, self.bdc = sps.bit_depth, sps.bit_depth_chroma
+        self.controls = controls or {}
+        self.grids = grids or {}
+        self.edge_kw = edge_kw or {}
+
+    @property
+    def arrays(self) -> dict:
+        """{name: numpy array}: the control arrays and the grids."""
+        return {**self.controls, **self.grids}
+
+    def args(self, up: dict, stage=trace.span) -> dict:
+        """The filters' arguments by name from `up`, the picture's upload
+        ({name: tensor}; it holds `grids`, and `arrays` on the engine's
+        route): each control array as uploaded (the numpy array where
+        `up` lacks it: a band is cut from it later), and, on a deblocked
+        picture, the eight per-edge arrays that ONE `edge_params` launch
+        makes from the uploaded grids, inside stage("edge_params") with
+        `kernel` 1 on its span."""
+        out = {k: up.get(k, a) for k, a in self.controls.items()}
+        if self.grids:
+            with _annotated(stage, "edge_params", 1):
+                out.update(zip(EDGE_KEYS, edge_params(
+                    *(up[k] for k in self.grids), **self.edge_kw)))
+        return out
+
+    def apply(self, y, cb, cr, args: dict, stage=None, ybounds=None):
+        """`apply_filters_device` on int32 planes y, cb, cr (the picture's,
+        or a halo band of them with `ybounds`) with `args` (`args`' names,
+        as tensors on the planes' device); a control array the picture
+        lacks is a placeholder. stage(name), where given, is entered
+        around "deblock" and "sao", each span annotated with `kernel` (1:
+        the kernels of csrc/loop_filters.cu on a card, 0: the plain
+        version). Returns new (y, cb, cr)."""
+        dev = y.device
+        fargs = [args[k] if k in args else _placeholder(dev, k == "sao")
+                 for k in FARG_KEYS]
+        kernel = int(dev.type == "cuda")
+        spans = contextlib.nullcontext if stage is None else \
+            (lambda name: _annotated(stage, name, kernel))
+        return apply_filters_device(
+            y, cb, cr, *fargs, ybounds, bd=self.bd, bdc=self.bdc, cs=self.cs,
+            do_deblock=self.do_deblock, do_sao=self.do_sao, hs=self.hs,
+            vs=self.vs, stage=spans)
+
+
+def plan_filters(fs):
+    """The in-loop filter plan of one picture (`FilterPlan`), or None for a
+    picture with no filters. The one place where the route is chosen: the
+    device where `prep_filters` models the picture, else the host."""
+    do_deblock, do_sao = _steps(fs)
+    if not do_deblock and not do_sao:
+        return None
+    controls = prep_filters(fs)
+    if controls is None:
+        return FilterPlan("host", do_deblock, do_sao, fs)
+    grids, edge_kw = edge_inputs(fs) if do_deblock else (None, None)
+    return FilterPlan("device", do_deblock, do_sao, fs, controls, grids,
+                      edge_kw)

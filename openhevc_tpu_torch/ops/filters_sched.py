@@ -1,8 +1,9 @@
 """The in-loop filters on the reference's exact CTB schedule, run on
 the host (numpy): the route of pictures whose in-loop filters fall
-outside the whole-frame device model (`ops/filters.py::prep_filters`
-returns None). TorchEngine fetches such a picture's unfiltered planes,
-runs `apply_loop_filters` here and keeps the result on the host.
+outside the whole-frame device model (the host route of their filter
+plan, `ops/filters.py::plan_filters`). TorchEngine and a mesh's tile
+axis fetch such a picture's unfiltered planes, run `apply_loop_filters`
+here and keep the result on the host.
 
 The reference interleaves deblocking and SAO in a one-CTB-lagged pipeline
 (ff_hevc_hls_filters / ff_hevc_hls_filter, hevc_filter.c:1027-1064) with

@@ -52,6 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import kernels
 from .tables import TABLES
 
 OY, OX = 8, 128
@@ -555,7 +556,7 @@ def _launch_levels(name, fn, meta, n, order, level_bounds, grid, luma,
                    chroma, res_l, res_c, bd):
     """One cooperative launch of level-parallel kernel `name` on the
     current stream; counts it on the wrapper `fn`."""
-    lib = _lib(name)
+    lib = kernels.load(name, _ARGTYPES)
     with torch.cuda.device(luma.device):
         limit = ctypes.c_int(0)
         rc = getattr(lib, f"{name}_max_grid")(ctypes.byref(limit))
@@ -657,7 +658,7 @@ def intra_fused_serial(meta, n, luma, chroma, res_l, res_c, bd):
     if luma.device.type == "cpu":
         return intra_fused_ref(meta, n, luma, chroma, res_l, res_c, bd)
     if n:
-        lib = _lib("intra_fused")
+        lib = kernels.load("intra_fused", _ARGTYPES)
         with torch.cuda.device(luma.device):
             rc = lib.intra_fused_serial_launch(
                 meta.data_ptr(), meta.shape[1], n,
@@ -674,6 +675,7 @@ def intra_fused_serial(meta, n, luma, chroma, res_l, res_c, bd):
 
 intra_fused_serial.launches = 0
 
+# the C functions' argument types (`kernels.load`)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PLANES = [_P, _I, _P, _I, _I, _P, _P, _I, _P]   # luma .. bd, stream
 _LEVELS = [_P, _I, _I, _P, _P, _I, _P, _I] + _PLANES
@@ -684,16 +686,3 @@ _ARGTYPES = {
     "intra_fused_max_grid": [ctypes.POINTER(_I)],
     "intra_fused_banded_max_grid": [ctypes.POINTER(_I)],
 }
-
-
-def _lib(name):
-    """Kernel library `name`, built at first use, with its C functions'
-    argument types set."""
-    from .. import kernels
-    lib = kernels.load(name)
-    for fname, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, fname, None)
-        if fn is not None and fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = _I
-    return lib

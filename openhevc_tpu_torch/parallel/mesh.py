@@ -17,20 +17,21 @@ it over a `DeviceMesh`:
   as they are: each member's engine takes its own weights.
 - **tile axis** (a 2-D mesh `("frame", "tile")`). Each CTB belongs to
   tile shard `tile_id % n_tile` (untiled pictures: all CTBs to shard 0).
-  Shard g of a member runs `TorchEngine.reconstruct(shard=(gmap, g))` on
-  its device: the residual TUs and intra jobs of its CTBs only (the
-  standard makes another tile's samples unavailable to intra
+  Shard g of a member runs `TorchEngine.prepare(shard=(gmap, g))` and
+  `launch` on its device: the residual TUs and intra jobs of its CTBs
+  only (the standard makes another tile's samples unavailable to intra
   prediction), the inter prediction and PCM samples of the whole
   picture. One masked combine per plane on the frame shard's first
-  device takes each CTB from its shard. The in-loop filters then run
-  band-sharded (`band_filters`): shard g deblocks and SAOs CTB rows
-  [g * rb, (g + 1) * rb), rb = ceil(ctbs_h / n_tile), on a band with a
-  one-CTB halo, and the bands' interiors make up the picture. The
-  per-edge deblocking parameters are made on the first device by one
-  `edge_params` launch, as on the engine's route, and cut per band with
-  the other control grids. A picture whose filters lie outside the
-  whole-frame device model (`prep_filters` returns None) takes the
-  host-filter route instead.
+  device takes each CTB from its shard. The in-loop filters then follow
+  the picture's filter plan (ops/filters.py `plan_filters`, the engine's
+  plan): on its device route they run band-sharded (`band_filters`):
+  shard g deblocks and SAOs CTB rows [g * rb, (g + 1) * rb), rb =
+  ceil(ctbs_h / n_tile), on a band with a one-CTB halo, and the bands'
+  interiors make up the picture. The plan's grids are uploaded to the
+  first device, where `plan.args` makes the per-edge deblocking
+  parameters in one launch, as on the engine's route; they and the
+  plan's control arrays are cut per band. On the plan's host route the
+  picture is filtered on the host (`host_filtered`).
 
 What the JAX package does for its static shapes, and the port leaves
 out: a wave is not padded to a multiple of the mesh (`mesh.py:321-322,
@@ -52,7 +53,10 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..utils import trace
+from ..bitstream.ps import ctb_tile_maps
+from ..models.pipeline import (OX, OY, TorchEngine, TorchPlanes,
+                               host_filtered, pack_planes, upload)
+from ..ops.filters import plan_filters
 
 AXES = (("frame",), ("frame", "tile"))
 
@@ -107,7 +111,6 @@ def tile_group_map(fs, n_tile: int) -> np.ndarray:
     the tile axis' size; an untiled picture lands on shard 0."""
     sps, pps = fs.sps, fs.pps
     if getattr(pps, "tiles_enabled", 0):
-        from ..bitstream.ps import ctb_tile_maps
         return (ctb_tile_maps(pps, sps)[2] % n_tile).astype(np.int32)
     return np.zeros((sps.ctbs_h, sps.ctbs_w), np.int32)
 
@@ -118,8 +121,8 @@ def _expand(gmap, csy: int, csx: int, h: int, w: int):
 
 
 def band_units(cs: int, csv: int) -> dict:
-    """Rows of each filter control grid (`ops/filters.py::FARG_KEYS`)
-    per CTB row: luma 4 / 8-sample edge rows, chroma rows (csv chroma
+    """Rows of each of the filters' named arrays (`FilterPlan.args`) per
+    CTB row: luma 4 / 8-sample edge rows, chroma rows (csv chroma
     samples a CTB), one SAO row a CTB, the per-chroma-sample stale
     masks."""
     return dict(beta_v=cs // 4, tc_v=cs // 4, beta_h=cs // 8, tc_h=cs // 8,
@@ -146,34 +149,31 @@ def _band_rows(a, g: int, rb: int, unit: int):
     return out
 
 
-def band_filters(y, cb, cr, pff, *, sps, devices, out_device=None):
+def band_filters(y, cb, cr, plan, args, *, devices, out_device=None):
     """The in-loop filters of one picture, band-sharded over the tile
     axis: band g (CTB rows [g * rb, (g + 1) * rb), rb = ceil(ctbs_h / T),
     T = len(devices)) is deblocked and SAO'd on devices[g] with a one-CTB
-    halo (more than the 12 rows that deblock + SAO reach); the control
-    grids are cut per band by `band_units` and uploaded to that device;
-    `ybounds` holds the picture's true top and bottom rows in band
-    coordinates, so the SAO edge classes stop at the picture and not at
-    the halo. The bands' interiors make up the result, on out_device
-    (y's by default).
+    halo (more than the 12 rows that deblock + SAO reach) by
+    `plan.apply`; each of the filters' arguments is cut per band by
+    `band_units` and goes to that device; `ybounds` holds the picture's
+    true top and bottom rows in band coordinates, so the SAO edge classes
+    stop at the picture and not at the halo. The bands' interiors make
+    up the result, on out_device (y's by default).
 
-    y [H, W], cb / cr [Hc, Wc] int32, the unfiltered picture; pff: its
-    `prep_filters` dict, whose grids are numpy arrays (uploaded in one
-    copy a band) or tensors (the per-edge parameters `edge_params` made,
-    cut and copied to the band's device). Returns filtered (y, cb, cr)
-    int32."""
-    from ..models.pipeline import _upload
-    from ..ops.filters import FARG_KEYS, apply_filters_device, fargs_arrays
+    y [H, W], cb / cr [Hc, Wc] int32, the unfiltered picture; plan: its
+    `FilterPlan` (device route); args: `plan.args`, whose arrays are
+    numpy (uploaded in one copy a band) or tensors (the per-edge
+    parameters, cut and copied to the band's device). Returns filtered
+    (y, cb, cr) int32."""
     out_device = y.device if out_device is None else out_device
     T = len(devices)
     H, W = y.shape
     Hc, Wc = cb.shape
-    hs, vs = sps.hshift1, sps.vshift1
-    cs = 1 << sps.log2_ctb
-    csv = cs >> vs
-    rb = -(-sps.ctbs_h // T)
+    cs = plan.cs
+    csv = cs >> plan.vs
+    ctbs_h = -(-H // cs)
+    rb = -(-ctbs_h // T)
     units = band_units(cs, csv)
-    fargs = fargs_arrays(pff)
     outs = [torch.empty((H, W), dtype=torch.int32, device=out_device),
             torch.empty((Hc, Wc), dtype=torch.int32, device=out_device),
             torch.empty((Hc, Wc), dtype=torch.int32, device=out_device)]
@@ -181,22 +181,16 @@ def band_filters(y, cb, cr, pff, *, sps, devices, out_device=None):
         lo = g * rb * cs
         if lo >= H:
             break                        # rb * T CTB rows pass the picture
-        # a grid the picture has is cut to the band; a placeholder of one
-        # it has not (`fargs_arrays`) rides as it is
-        grids = [_band_rows(a, g, rb, units[k]) if k in pff else a
-                 for k, a in zip(FARG_KEYS, fargs)]
-        up = iter(_upload([a for a in grids if isinstance(a, np.ndarray)],
-                          dev))
-        fb = [next(up) if isinstance(a, np.ndarray) else a.to(dev)
-              for a in grids]
+        cut = {k: _band_rows(a, g, rb, units[k]) for k, a in args.items()}
+        fb = upload({k: a for k, a in cut.items()
+                     if isinstance(a, np.ndarray)}, dev)
+        fb.update((k, a.to(dev)) for k, a in cut.items()
+                  if not isinstance(a, np.ndarray))
         planes = [_band_rows(p, g, rb, u).to(dev)
                   for p, u in ((y, cs), (cb, csv), (cr, csv))]
         ybounds = ((cs - lo, H + cs - lo),
                    (csv - g * rb * csv, Hc + csv - g * rb * csv))
-        got = apply_filters_device(
-            *planes, *fb, ybounds=ybounds, bd=sps.bit_depth,
-            bdc=sps.bit_depth_chroma, cs=cs, do_deblock=pff["do_deblock"],
-            do_sao=pff["do_sao"], hs=hs, vs=vs)
+        got = plan.apply(*planes, fb, ybounds=ybounds)
         for out, p, unit in zip(outs, got, (cs, csv, csv)):
             a = g * rb * unit
             b = min((g + 1) * rb * unit, out.shape[0])
@@ -218,7 +212,6 @@ class MeshFrameDecoder:
     def engine(self, device):
         """The one TorchEngine of a device of the mesh."""
         if device not in self._engines:
-            from ..models.pipeline import TorchEngine
             self._engines[device] = TorchEngine(device)
         return self._engines[device]
 
@@ -250,9 +243,12 @@ class MeshFrameDecoder:
             shards = []
             for i, (fs, refs) in enumerate(zip(fs_list, refs_list)):
                 gmap = tile_group_map(fs, self.n_tile)
-                shards.append((gmap, [
-                    self.engine(dev).reconstruct(fs, refs, shard=(gmap, g))
-                    for g, dev in enumerate(self._shard_devices(i))]))
+                ks = []
+                for g, dev in enumerate(self._shard_devices(i)):
+                    eng = self.engine(dev)
+                    ks.append(eng.prepare(fs, refs, shard=(gmap, g)))
+                    eng.launch(ks[-1])
+                shards.append((gmap, ks))
             outs = [self._combine_and_filter(fs, gmap, ks,
                                              self._shard_devices(i))
                     for i, (fs, (gmap, ks)) in enumerate(zip(fs_list,
@@ -263,10 +259,6 @@ class MeshFrameDecoder:
         """One member on the tile axis: the masked combine of its tile
         shards' planes on devices[0], then its filters (band-sharded over
         `devices`, or the host-filter route), crop and downcast."""
-        from ..models.pipeline import (OX, OY, TorchPlanes, _upload,
-                                       host_filtered, pack_planes)
-        from ..ops.filters import (EDGE_KEYS, edge_inputs, edge_params,
-                                   prep_filters)
         sps = fs.sps
         H, W, Hc, Wc = ks[0]["dims"]
         hs, vs, bd = sps.hshift1, sps.vshift1, sps.bit_depth
@@ -284,20 +276,15 @@ class MeshFrameDecoder:
             y = torch.where(ml == g, luma[OY:OY + H, OX:OX + W], y)
             cb = torch.where(mc == g, chroma[0, OY:OY + Hc, OX:OX + Wc], cb)
             cr = torch.where(mc == g, chroma[1, OY:OY + Hc, OX:OX + Wc], cr)
-        want = not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma
-        pff = prep_filters(fs, edges=False) if want else None
-        if want and pff is None:
+        plan = plan_filters(fs)
+        if plan is not None and plan.route == "host":
             return host_filtered(fs, pack_planes(y, cb, cr, bd), H, W, Hc,
                                  Wc)
-        if pff is not None and pff["do_deblock"]:
-            # the per-edge parameters, made on devices[0] from the
-            # parser's grids as the engine makes them
-            with trace.span("edge_params", kernel=1):
-                grids, kw = edge_inputs(fs)
-                pff.update(zip(EDGE_KEYS,
-                               edge_params(*_upload(grids, dev0), **kw)))
-        if pff is not None:
-            y, cb, cr = band_filters(y, cb, cr, pff, sps=sps,
-                                     devices=devices, out_device=dev0)
+        if plan is not None:
+            # the per-edge parameters, made on devices[0] from the plan's
+            # grids as the engine makes them
+            args = plan.args(upload(plan.grids, dev0))
+            y, cb, cr = band_filters(y, cb, cr, plan, args, devices=devices,
+                                     out_device=dev0)
         return TorchPlanes(pack_planes(y, cb, cr, bd), H, W, Hc, Wc,
-                           device_filtered=pff is not None)
+                           device_filtered=plan is not None)

@@ -95,17 +95,18 @@ def _last_json(out):
 
 
 def _spy_uploads(monkeypatch):
-    """The padded sizes of the buffers `_upload` copies, as a list that
+    """The padded sizes of the buffers `upload` copies, as a list that
     grows with every call."""
     from openhevc_tpu_torch.models import pipeline
     sizes = []
-    real = pipeline._upload
+    real = pipeline.upload
 
     def spy(arrays, device):
-        sizes.append(max(sum((a.nbytes + 15) & ~15 for a in arrays), 16))
+        sizes.append(max(sum((a.nbytes + 15) & ~15
+                             for a in arrays.values()), 16))
         return real(arrays, device)
 
-    monkeypatch.setattr(pipeline, "_upload", spy)
+    monkeypatch.setattr(pipeline, "upload", spy)
     return sizes
 
 
@@ -160,7 +161,7 @@ def test_one_stream_reports_every_key_md5_checked(name, tmp_path, capsys,
                                                   monkeypatch):
     data, want = _write_stream(tmp_path, name)
     _make, two, frame_bytes = TINY[name]
-    # the engine's H2D count == the bytes of the buffers `_upload` copies
+    # the engine's H2D count == the bytes of the buffers `upload` copies
     sizes = _spy_uploads(monkeypatch)
     pics, _, dec = bt.decode_all(data, fetch=True, two_layers=two,
                                  device="cpu")

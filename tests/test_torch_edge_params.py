@@ -1,12 +1,13 @@
 """The deblocking filter's per-edge parameters made on the device
 (`ops/filters.py::edge_params`: csrc/edge_params.cu on a card, its plain
-PyTorch version `edge_params_ref` on the CPU) against `prep_filters`'
-numpy arrays, array for array, on every deblocked picture of the
-benchmark's 1080p random-access stream and of the deblocked feature
-streams (4:2:2, 4:4:4, 10 / 12 bit, CTB 16 / 32 / 64, PCM, lossless,
-weighted bi-prediction). The CPU comparison is in
+PyTorch version `edge_params_ref` on the CPU), array for array, on every
+deblocked picture of the benchmark's 1080p random-access stream and of
+the deblocked feature streams (4:2:2, 4:4:4, 10 / 12 bit, CTB 16 / 32 /
+64, PCM, lossless, weighted bi-prediction). The CPU comparison of the
+plain version with the JAX package's `prep_filters` is in
 tests/test_torch_filters.py; this file holds the wrapper's checks, the
-reader of the `edge_params` spans and the `gpu` test, and imports no JAX
+reader of the `edge_params` spans and the `gpu` test (kernel == plain
+version on the card == plain version on the CPU), and imports no JAX
 (the card's machine has none). Tolerance: none (integers)."""
 import json
 import os
@@ -18,7 +19,7 @@ import torch
 
 from openhevc_tpu_torch.ops.filters import (EDGE_KEYS, edge_inputs,
                                             edge_params, edge_params_ref,
-                                            prep_filters)
+                                            plan_filters)
 from test_torch_intra import cuda  # noqa: F401  (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,17 +48,17 @@ EDGE_STREAMS = [BENCH_STREAM] + _deblocked_feature_streams()
 
 
 def deblocked(path):
-    """(fs, prep_filters(fs)) of every picture of the stream (a path
-    from the repo's root) that the engine deblocks on the device, in
+    """Every picture of the stream (a path from the repo's root) that the
+    engine deblocks on the device (its filter plan's device route), in
     decode order; parsed on the CPU."""
     from bench_torch import parse_only
     with open(os.path.join(ROOT, path), "rb") as f:
         data = f.read()
     out = []
     for fs in parse_only(data, device="cpu"):
-        pff = None if fs.deblock_disabled else prep_filters(fs)
-        if pff is not None:
-            out.append((fs, pff))
+        plan = plan_filters(fs)
+        if plan is not None and plan.route == "device" and plan.do_deblock:
+            out.append(fs)
     return out
 
 
@@ -65,7 +66,7 @@ def device_edges(fs, device, fn=edge_params):
     """fn (`edge_params` or its plain version) on the picture's grids,
     moved to `device`."""
     grids, kw = edge_inputs(fs)
-    g = [torch.from_numpy(np.array(a)).to(device) for a in grids]
+    g = [torch.from_numpy(np.array(a)).to(device) for a in grids.values()]
     return fn(*g, **kw)
 
 
@@ -173,15 +174,16 @@ def test_reader_of_the_spans_counts_the_kernel_route(monkeypatch):
 @pytest.mark.gpu
 def test_edge_params_kernel_equals_plain_version_on_the_card(cuda):
     """On every deblocked picture of the streams: the kernel == its plain
-    version on the card == `prep_filters`; one launch a picture; a
-    second launch gives identical tensors. Then a decode of the 1080p
-    stream launches it once a deblocked picture, md5-exact."""
+    version on the card == its plain version on the CPU (which the CPU
+    tests hold against the JAX package's `prep_filters`); one launch a
+    picture; a second launch gives identical tensors. Then a decode of
+    the 1080p stream launches it once a deblocked picture, md5-exact."""
     from bench_torch import hash_pics
     from openhevc_tpu_torch.decoder import Decoder
     n = 0
     before = edge_params.launches
     for path in EDGE_STREAMS:
-        for fs, pff in deblocked(path):
+        for fs in deblocked(path):
             got = device_edges(fs, "cuda")
             assert all(a.device.type == "cuda" for a in got)
             again = device_edges(fs, "cuda")
@@ -189,7 +191,9 @@ def test_edge_params_kernel_equals_plain_version_on_the_card(cuda):
             torch.cuda.synchronize()
             for a, b, c in zip(got, again, plain):
                 assert torch.equal(a, b) and torch.equal(a, c)
-            assert_edges_equal(got, pff)
+            cpu = device_edges(fs, "cpu", edge_params_ref)
+            assert_edges_equal(got, {k: a.numpy()
+                                     for k, a in zip(EDGE_KEYS, cpu)})
             n += 1
     assert edge_params.launches - before == 2 * n
     assert n > 60

@@ -316,13 +316,14 @@ def _host_filtered_stream(key):
 
 @pytest.mark.parametrize("key", HOST_FILTERED)
 def test_host_filter_route_matches_np(key, monkeypatch):
-    """With `prep_filters` forced to None every filtered picture takes
-    the host route: fetched unfiltered, filtered on the CTB schedule,
-    kept on the host, and read there as a reference."""
+    """With `prep_filters` forced to None every filtered picture's filter
+    plan takes the host route: fetched unfiltered, filtered on the CTB
+    schedule, kept on the host, and read there as a reference."""
     from openhevc_tpu_torch.models import pipeline
+    from openhevc_tpu_torch.ops import filters
     data = _host_filtered_stream(key)
     want = _np(data)
-    monkeypatch.setattr(pipeline, "prep_filters", lambda fs, **kw: None)
+    monkeypatch.setattr(filters, "prep_filters", lambda fs: None)
 
     class Timed(pipeline.TorchEngine):
         def __init__(self, device):
@@ -338,10 +339,10 @@ def test_host_filter_route_matches_np(key, monkeypatch):
 
 
 def test_host_filter_route_matches_jax_decoder(monkeypatch):
-    from openhevc_tpu_torch.models import pipeline
+    from openhevc_tpu_torch.ops import filters
     data = _intra_filtered("ctb16")[0]
     want = _jax(data)
-    monkeypatch.setattr(pipeline, "prep_filters", lambda fs, **kw: None)
+    monkeypatch.setattr(filters, "prep_filters", lambda fs: None)
     rext.assert_same(rext.decode(_port(), data), want)
 
 

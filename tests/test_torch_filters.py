@@ -1,6 +1,8 @@
-"""Port in-loop filters: `prep_filters` + `apply_filters_device` of the
-port (ops/filters.py) vs the JAX package's (ops/filters_jax.py, plain XLA,
-runs on the CPU) and vs the reference-exact scalar schedule
+"""Port in-loop filters: the filter plan (`plan_filters`: `prep_filters`'
+control arrays, the per-edge arrays of `edge_params`, `apply_filters_device`)
+of the port (ops/filters.py) vs the JAX package's `prep_filters` +
+`apply_filters_device` (ops/filters_jax.py, plain XLA, runs on the CPU)
+and vs the reference-exact scalar schedule
 (ops/filters_sched.py), on the matrix of tests/test_device_filters.py:
 CTB 16 / 32, PCM, transquant bypass, deblock-only, SAO-only, and, for
 the filter functions alone, 4:2:2 / 4:4:4. Then whole decodes with the
@@ -17,6 +19,7 @@ import torch
 from conftest import make_frames
 from test_device_filters import _capture_frames, _frames_fmt
 from test_torch_banded import _force_banded
+from openhevc_tpu_torch.ops.filters import edge_params_ref
 from test_torch_edge_params import (EDGE_STREAMS, ROOT, assert_edges_equal,
                                     deblocked, device_edges,
                                     one_thread)  # noqa: F401  (a fixture)
@@ -65,12 +68,28 @@ def _jax_filter(pre, fs):
     return pff, [np.asarray(o) for o in out]
 
 
-def _port_filter(pre, fs, views=False):
+def port_plan(fs):
+    """The picture's filter plan (device route) and its arguments made on
+    the CPU from the plan's arrays, as the engine makes them from its
+    upload (`plan.args`: the control arrays, and the per-edge arrays of
+    the plain `edge_params`)."""
     from openhevc_tpu_torch.ops import filters as F
-    assert F.device_filters_ok(fs)
-    pff = F.prep_filters(fs)
-    fargs = [torch.from_numpy(np.ascontiguousarray(a))
-             for a in F.fargs_arrays(pff)]
+    plan = F.plan_filters(fs)
+    assert plan.route == "device"
+    up = {k: torch.from_numpy(np.ascontiguousarray(a))
+          for k, a in plan.arrays.items()}
+    return plan, plan.args(up)
+
+
+def _port_prep(plan, args):
+    """The plan in the JAX package's `prep_filters` layout: its flags
+    and its arguments by name, as numpy."""
+    return dict({k: a.numpy() for k, a in args.items()},
+                do_deblock=plan.do_deblock, do_sao=plan.do_sao)
+
+
+def _port_filter(pre, fs, views=False):
+    plan, args = port_plan(fs)
     planes = [torch.from_numpy(np.asarray(p, np.int32)) for p in pre]
     if views:       # un-padded views of larger buffers, as the engine's
         big = [torch.full((p.shape[0] + 9, p.shape[1] + 5), -5,
@@ -92,15 +111,13 @@ def _port_filter(pre, fs, views=False):
         def __exit__(self, *exc):
             return False
 
-    out = F.apply_filters_device(
-        *planes, *fargs, bd=sps.bit_depth, bdc=sps.bit_depth_chroma,
-        cs=1 << sps.log2_ctb, do_deblock=pff["do_deblock"],
-        do_sao=pff["do_sao"], hs=sps.hshift1, vs=sps.vshift1, stage=stage)
-    assert stages == ["deblock"] * pff["do_deblock"] + ["sao"] * pff["do_sao"]
+    assert plan.cs == 1 << sps.log2_ctb
+    out = plan.apply(*planes, args, stage=stage)
+    assert stages == ["deblock"] * plan.do_deblock + ["sao"] * plan.do_sao
     if views:
         assert all((b == -5).sum() == b.numel() - p.numel()
                    for b, p in zip(big, planes))
-    return pff, [o.numpy() for o in out]
+    return _port_prep(plan, args), [o.numpy() for o in out]
 
 
 def _check_stream(data, views=False):
@@ -109,7 +126,7 @@ def _check_stream(data, views=False):
         jp, want = _jax_filter(pre, fs)
         pp, got = _port_filter(pre, fs, views)
         assert set(jp) == set(pp)
-        for k in jp:                      # the host prep, array by array
+        for k in jp:                      # the filters' inputs, one by one
             a, b = np.asarray(jp[k]), np.asarray(pp[k])
             assert a.dtype == b.dtype and np.array_equal(a, b), k
         for c in range(3):
@@ -166,7 +183,7 @@ def test_inter_boundary_strengths_match_jax():
         for g, w in zip(got, want):
             assert np.array_equal(g, w)
         seen += int((got[0] == 1).any())
-        jp, pp = filters_jax.prep_filters(fs), filters.prep_filters(fs)
+        jp, pp = filters_jax.prep_filters(fs), _port_prep(*port_plan(fs))
         assert set(jp) == set(pp)
         assert all(np.array_equal(np.asarray(jp[k]), np.asarray(pp[k]))
                    for k in jp)
@@ -185,15 +202,14 @@ def _numpy(pff):
 def test_edge_params_plain_version_equals_prep_filters(path):
     """Every deblocked picture of the benchmark's 1080p stream and of the
     deblocked feature streams: the plain PyTorch `edge_params` gives the
-    JAX package's `prep_filters`' eight per-edge arrays, array for array,
-    and the port's numpy `prep_filters` gives them too."""
+    JAX package's `prep_filters`' eight per-edge arrays, array for
+    array."""
     from openhevc_tpu.ops import filters_jax
     pics = deblocked(path)
     assert pics
-    for fs, pff in pics:
-        got = device_edges(fs, "cpu")
+    for fs in pics:
+        got = device_edges(fs, "cpu", edge_params_ref)
         assert_edges_equal(got, _numpy(filters_jax.prep_filters(fs)))
-        assert_edges_equal(got, pff)
 
 
 @pytest.mark.usefixtures("one_thread")
@@ -207,19 +223,16 @@ def test_edge_params_with_offsets(path, offsets):
     """No committed stream carries non-zero beta / tc offsets or slice
     chroma QP offsets: set on the parsed pictures (every version reads
     the same fields), they move the clips and the chroma tables alike in
-    the plain version, the JAX package's and the port's `prep_filters`."""
+    the plain version and the JAX package's `prep_filters`."""
     from openhevc_tpu.ops import filters_jax
-    from openhevc_tpu_torch.ops import filters
     bo, to, cb, cr = offsets
-    for fs, plain in deblocked(path):
+    for fs in deblocked(path):
+        plain = device_edges(fs, "cpu", edge_params_ref)
         fs.beta_offset, fs.tc_offset = bo, to
         fs.slice_cb_qp_offset, fs.slice_cr_qp_offset = cb, cr
-        pff = filters.prep_filters(fs)
-        assert any(not np.array_equal(pff[k], plain[k])
-                   for k in filters.EDGE_KEYS)
-        got = device_edges(fs, "cpu")
+        got = device_edges(fs, "cpu", edge_params_ref)
+        assert any(not torch.equal(a, b) for a, b in zip(got, plain))
         assert_edges_equal(got, _numpy(filters_jax.prep_filters(fs)))
-        assert_edges_equal(got, pff)
 
 
 def test_mv_rule_needs_no_reference_index():
@@ -256,8 +269,9 @@ def test_edge_params_keep_poc_identity_with_a_reference_missing():
     """An inter picture one of whose references is missing from
     `ref_planes`: the MC maps that reference onto the first one's cache
     slot (`_pack_inter`), which would merge the two in the MV rule; the
-    engine's per-edge parameters follow the parser's POCs and equal
-    `prep_filters`' arrays."""
+    engine's per-edge parameters follow the parser's POCs and equal the
+    JAX package's `prep_filters`' arrays and the plain version's on the
+    parser's grids."""
     import copy
     from openhevc_tpu.ops import filters_jax
     from openhevc_tpu_torch.models.pipeline import TorchEngine
@@ -283,10 +297,10 @@ def test_edge_params_keep_poc_identity_with_a_reference_missing():
                     filters.boundary_strengths_vec(fs))):
                 continue
             k = TorchEngine("cpu").prepare(fs, left)
-            assert_edges_equal(k["filters"]["fargs"][:8],
-                               _numpy(filters_jax.prep_filters(fs)))
-            assert_edges_equal(k["filters"]["fargs"][:8],
-                               filters.prep_filters(fs))
+            edges = [k["filter_args"][e] for e in filters.EDGE_KEYS]
+            assert_edges_equal(edges, _numpy(filters_jax.prep_filters(fs)))
+            want = device_edges(fs, "cpu", edge_params_ref)
+            assert all(torch.equal(a, b) for a, b in zip(edges, want))
             checked += 1
     assert checked
 
@@ -406,11 +420,11 @@ def test_port_decoder_filtered_matches_jax_decoder():
 
 
 def test_filter_pattern_outside_the_model_raises(monkeypatch):
-    """Where `prep_filters` gives up on a CTB-16 halo pattern the picture
-    takes the host-scheduled filters (ops/filters_sched.py), as in the
-    JAX package: it is returned filtered, equal to `Decoder("np")`."""
+    """Where `prep_filters` gives up on a CTB-16 halo pattern the picture's
+    filter plan takes the host route, the host-scheduled filters
+    (ops/filters_sched.py), as in the JAX package: it is returned
+    filtered, equal to `Decoder("np")`."""
     from openhevc_tpu_torch.decoder import Decoder
-    from openhevc_tpu_torch.models import pipeline
     from openhevc_tpu_torch.ops import filters
     data, _, _ = _intra_filtered("ctb16")
     want = np_decode(data)
@@ -419,34 +433,41 @@ def test_filter_pattern_outside_the_model_raises(monkeypatch):
     assert_same(got, want)
     assert not any(p.planes.device_filtered for p in pics)
     monkeypatch.undo()
-    monkeypatch.setattr(pipeline, "prep_filters", lambda fs, **kw: None)
+    monkeypatch.setattr(filters, "prep_filters", lambda fs: None)
     got, pics = decode(Decoder(device="cpu"), data)
     assert_same(got, want)
     assert not any(p.planes.device_filtered for p in pics)
 
 
 def test_filters_ride_in_the_one_upload(monkeypatch):
-    """A filtered inter picture makes one host-to-device copy: arenas,
-    meta, motion deltas, the filters' control tensors and, in place of
-    the eight per-edge parameter arrays, the grids that `edge_params`
-    makes them from (five per-4x4 grids, the chroma QP tables, three
-    motion grids) together."""
+    """A filtered inter picture makes one host-to-device copy, by name:
+    arenas, meta, the filters' control arrays the picture has (CTB 16
+    with SAO: the three stale-read masks and the SAO parameters; no
+    placeholder) and, in place of the eight per-edge parameter arrays,
+    the grids that `edge_params` makes them from (five per-4x4 grids, the
+    chroma QP tables, three motion grids), then the motion deltas."""
     from openhevc_tpu_torch.models import pipeline
     from test_torch_inter import _captured
     fs, refs = _captured(lowdelay("p", sao=True, deblock=True))[-1]
     eng = pipeline.TorchEngine("cpu")
     eng.prepare(fs, refs)                      # stage 1 of the references
     uploads = []
-    orig = pipeline._upload
-    monkeypatch.setattr(pipeline, "_upload",
-                        lambda arrays, dev: (uploads.append(len(arrays)),
+    orig = pipeline.upload
+    monkeypatch.setattr(pipeline, "upload",
+                        lambda arrays, dev: (uploads.append(list(arrays)),
                                              orig(arrays, dev))[1])
     k = eng.prepare(fs, refs)
-    assert uploads == [4 + 2 + len(pipeline.fargs_arrays({})) - 8 + 6 + 3]
-    f = k["filters"]
-    assert f["do_deblock"] and f["do_sao"] and f["cs"] == 16
-    assert len(f["fargs"]) == 22 and f["fargs"][0].dtype == torch.int16
-    assert f["fargs"][0].shape == (16, 8)      # beta_v [H/4, W/8]
+    assert uploads == [["arena4", "arena16", "esc", "meta6", "st_b0",
+                        "st_b2", "st_a3", "sao", "pred_mode", "cbf",
+                        "bounds_v", "bounds_h", "qp", "qlut", "pred_flag",
+                        "mv", "refpoc", "md_idx", "md_vals"]]
+    f, a = k["filters"], k["filter_args"]
+    assert f.route == "device" and f.do_deblock and f.do_sao and f.cs == 16
+    assert list(a) == ["st_b0", "st_b2", "st_a3", "sao", "beta_v", "tc_v",
+                       "beta_h", "tc_h", "tc_cv1", "tc_ch1", "tc_cv2",
+                       "tc_ch2"]
+    assert a["beta_v"].dtype == torch.int16
+    assert a["beta_v"].shape == (16, 8)        # beta_v [H/4, W/8]
 
 
 def test_unfiltered_pictures_carry_no_filter_tensors():

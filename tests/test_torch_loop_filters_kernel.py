@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from openhevc_tpu_torch.decoder import Decoder
-from openhevc_tpu_torch.models import pipeline
 from openhevc_tpu_torch.ops import filters as F
 from openhevc_tpu_torch.ops.tables import BETA_TABLE, TC_TABLE
 from openhevc_tpu_torch.utils import trace
@@ -264,32 +263,33 @@ def test_kernels_equal_the_plain_version_on_the_matrix(cuda):
 
 def filtered_calls(path, n=None):
     """Decode the first n pictures of a stream on the card (all with
-    None), holding every `apply_filters_device` call of the engine to
-    the plain version on the same arguments, with the stated launches.
-    Returns (pictures decoded, calls held)."""
+    None), holding every `apply_filters_device` call of the engine's
+    filter plan (`FilterPlan.apply` calls it by its name in
+    ops/filters.py) to the plain version on the same arguments, with the
+    stated launches. Returns (pictures decoded, calls held)."""
     from bench_torch import first_frames
     with open(path, "rb") as f:
         data = f.read()
     if n is not None:
         data = first_frames(data, n)
     held = []
-    real = pipeline.apply_filters_device
+    real = F.apply_filters_device
 
     def spy(*args, **kw):
-        before = F.apply_filters_device.launches
+        before = real.launches
         got = real(*args, **kw)
-        assert F.apply_filters_device.launches - before == launches_due(kw)
+        assert real.launches - before == launches_due(kw)
         ref = dict(kw, stage=F.contextlib.nullcontext)
         assert_planes_equal(got, F.apply_filters_ref(*args, **ref))
         held.append(launches_due(kw))
         return got
 
-    pipeline.apply_filters_device = spy
+    F.apply_filters_device = spy
     try:
         dec = Decoder(device="cuda")
         pics = dec.decode(data) + dec.flush()
     finally:
-        pipeline.apply_filters_device = real
+        F.apply_filters_device = real
     return pics, held
 
 

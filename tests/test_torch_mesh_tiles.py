@@ -52,20 +52,23 @@ def _captured(name):
     return _CAPTURED[name]
 
 
+def _plan(fs):
+    """The picture's filter plan (device route) and its arguments on the
+    CPU (`plan.args` on the plan's arrays as CPU tensors)."""
+    from openhevc_tpu_torch.ops.filters import plan_filters
+    plan = plan_filters(fs)
+    assert plan.route == "device"
+    return plan, plan.args({k: torch.from_numpy(np.ascontiguousarray(a))
+                            for k, a in plan.arrays.items()})
+
+
 def _whole(pre, fs):
-    """The port's whole-frame device filters: (pff, [y, cb, cr])."""
-    from openhevc_tpu_torch.ops import filters as F
-    pff = F.prep_filters(fs)
-    assert pff is not None
-    fargs = [torch.from_numpy(np.ascontiguousarray(a))
-             for a in F.fargs_arrays(pff)]
+    """The port's whole-frame device filters: (plan, args, planes,
+    [y, cb, cr])."""
+    plan, args = _plan(fs)
     planes = [torch.from_numpy(np.asarray(p, np.int32)) for p in pre]
-    sps = fs.sps
-    out = F.apply_filters_device(
-        *planes, *fargs, bd=sps.bit_depth, bdc=sps.bit_depth_chroma,
-        cs=1 << sps.log2_ctb, do_deblock=pff["do_deblock"],
-        do_sao=pff["do_sao"], hs=sps.hshift1, vs=sps.vshift1)
-    return pff, planes, [o.numpy() for o in out]
+    out = plan.apply(*planes, args)
+    return plan, args, planes, [o.numpy() for o in out]
 
 
 @pytest.mark.parametrize("T", [2, 3, 4])
@@ -74,10 +77,10 @@ def test_band_filters_equal_whole_frame(name, T):
     from openhevc_tpu_torch.parallel.mesh import band_filters
     n = 0
     for pre, fs, truth in _captured(name):
-        pff, planes, want = _whole(pre, fs)
+        plan, args, planes, want = _whole(pre, fs)
         assert (fs.sps.log2_ctb, fs.sps.chroma_format_idc) == \
             (FILTER_CASES[name][3], FILTER_CASES[name][0])
-        got = band_filters(*planes, pff, sps=fs.sps, devices=[CPU] * T)
+        got = band_filters(*planes, plan, args, devices=[CPU] * T)
         for c in range(3):
             assert got[c].dtype == torch.int32
             assert np.array_equal(got[c].numpy(), want[c]), (c, T)
@@ -90,12 +93,12 @@ def test_band_filters_equal_whole_frame(name, T):
 @pytest.mark.parametrize("name", ["ctb16_420_part_row", "ctb32_422_pcm",
                                   "ctb16_444"])
 def test_ybounds_matches_jax_on_bands(name):
-    """Both packages' `apply_filters_device` on the same halo bands (cut
-    by `band_units`, with `ybounds` in band coordinates), every band of a
-    3-band split: equal."""
+    """The JAX package's `apply_filters_device` on its own `prep_filters`
+    arrays and the port's filter plan (`plan.apply`) on its arguments,
+    both cut to the same halo bands (`band_units`, with `ybounds` in band
+    coordinates), every band of a 3-band split: equal."""
     import jax.numpy as jnp
     from openhevc_tpu.ops import filters_jax as JF
-    from openhevc_tpu_torch.ops import filters as F
     from openhevc_tpu_torch.parallel.mesh import _band_rows, band_units
     pre, fs, _truth = _captured(name)[0]
     sps = fs.sps
@@ -104,7 +107,9 @@ def test_ybounds_matches_jax_on_bands(name):
     T = 3
     rb = -(-sps.ctbs_h // T)
     H, Hc = sps.height, sps.height >> sps.vshift1
-    pff = F.prep_filters(fs)
+    pff = JF.prep_filters(fs)
+    plan, args = _plan(fs)
+    assert set(args) == set(pff) - {"do_deblock", "do_sao"}
     units = band_units(cs, csv)
     kw = dict(bd=sps.bit_depth, bdc=sps.bit_depth_chroma, cs=cs,
               do_deblock=pff["do_deblock"], do_sao=pff["do_sao"],
@@ -114,17 +119,17 @@ def test_ybounds_matches_jax_on_bands(name):
             continue
         planes = [_band_rows(np.asarray(p, np.int32), g, rb, u)
                   for p, u in zip(pre, (cs, csv, csv))]
-        grids = [_band_rows(a, g, rb, units[k]) if k in pff else a
-                 for k, a in zip(F.FARG_KEYS, F.fargs_arrays(pff))]
+        grids = [_band_rows(np.asarray(a), g, rb, units[k]) if k in pff
+                 else a for k, a in zip(JF.FARG_KEYS, JF.fargs_arrays(pff))]
         yb = ((cs - g * rb * cs, H + cs - g * rb * cs),
               (csv - g * rb * csv, Hc + csv - g * rb * csv))
         want = JF.apply_filters_device(
             *(jnp.asarray(p) for p in planes),
             *(jnp.asarray(a) for a in grids), ybounds=yb, **kw)
-        got = F.apply_filters_device(
+        got = plan.apply(
             *(torch.from_numpy(p) for p in planes),
-            *(torch.from_numpy(np.ascontiguousarray(a)) for a in grids),
-            ybounds=yb, **kw)
+            {k: _band_rows(a, g, rb, units[k]) for k, a in args.items()},
+            ybounds=yb)
         for c in range(3):
             assert np.array_equal(got[c].numpy(), np.asarray(want[c])), \
                 (g, c)
@@ -396,15 +401,15 @@ def _assert_same(got, want):
 
 
 def test_host_filter_route_on_the_tile_axis(monkeypatch):
-    """A picture whose `prep_filters` gives up takes the host-filter
-    route after the shards are combined: filtered on the host, equal to
-    `Decoder("np")`."""
+    """A picture whose `prep_filters` gives up (its filter plan takes the
+    host route) is filtered on the host after the shards are combined,
+    equal to `Decoder("np")`."""
     from openhevc_tpu.decoder import Decoder as JaxDecoder
     from openhevc_tpu_torch.decoder import Decoder
     from openhevc_tpu_torch.ops import filters
     from openhevc_tpu_torch.parallel import DeviceMesh
     data = TILED["intra_3x2"]()
-    monkeypatch.setattr(filters, "prep_filters", lambda fs, **kw: None)
+    monkeypatch.setattr(filters, "prep_filters", lambda fs: None)
     mesh = DeviceMesh([["cpu"] * 2] * 2, ("frame", "tile"))
     got, pics = _decode(Decoder(device="cpu", mesh=mesh), data)
     _assert_same(got, _decode(JaxDecoder("np"), data)[0])

@@ -9,8 +9,9 @@ decode order; an inter picture is prepared with its decoded references
 on the card, an enhancement-layer picture with its inter-layer
 reference) it prints
 (a) the synchronised host-clock time of prepare() and of its parts run
-alone: the band sort on the host, the in-loop filters' control data
-(`prep_filters`, with its boundary strengths alone) and the motion
+alone: the band sort on the host, the in-loop filters' plan
+(`plan_filters`: control arrays and the grids the per-edge parameters
+are made from on the card) and the motion
 packing (`_pack_inter`: sparse deltas, weight grids, stage 1 of the
 references, here all cached) on the host, the one host-to-device copy,
 the residual planes, the meta derivation and the level schedule; (b) a
@@ -81,21 +82,19 @@ def main() -> int:
             Hc, Wc = H >> sps.vshift1, W >> sps.hshift1
             plan = eng.fused_plan(fs)
             add("prepare (all)", lambda: eng.prepare(fs, refs))
-            if not fs.deblock_disabled or fs.sao_luma or fs.sao_chroma:
-                add("prep_filters (host)", lambda: flt.prep_filters(fs))
-                if not fs.deblock_disabled:
-                    add("... its boundary_strengths_vec",
-                        lambda: flt.boundary_strengths_vec(fs))
+            add("plan_filters (host)", lambda: flt.plan_filters(fs))
             if fs.inter_pbs:
                 add("_pack_inter (host; stage 1 cached)",
                     lambda: eng._pack_inter(fs, refs, (H, W, Hc, Wc)))
-            host = [npk["arena4"], npk["arena16"], npk["esc"], npk["meta6"]]
+            host = dict(arena4=npk["arena4"], arena16=npk["arena16"],
+                        esc=npk["esc"], meta6=npk["meta6"])
             if plan[0] == "banded":
-                host[3], _ = add("band sort (host)",
-                                 lambda: ifm.sort_meta_by_band(
-                                     npk["meta6"], npk["n"], plan[2],
-                                     sps.vshift1, plan[3]))
-            a4, a16, esc, m6 = add("upload", lambda: pl._upload(host, "cuda"))
+                host["meta6"], _ = add("band sort (host)",
+                                       lambda: ifm.sort_meta_by_band(
+                                           npk["meta6"], npk["n"], plan[2],
+                                           sps.vshift1, plan[3]))
+            dev = add("upload", lambda: pl.upload(host, "cuda"))
+            a4, a16, esc, m6 = (dev[k] for k in host)
             add("residual planes", lambda: pl._residual_acc(
                 a4, a16, esc, caps=npk["caps"], H=H, W=W, Hc=Hc, Wc=Wc,
                 bd=sps.bit_depth))
